@@ -1,0 +1,289 @@
+"""BGV ciphertext with noise bookkeeping (helib_tpu.ctxt).
+
+The noise state machine follows helib_tpu's formulas exactly; magnitudes are
+log2-domain Python floats.  Parts are [..., P, N] tensors, so one Ctxt can
+carry a batch of ciphertexts in its leading dims.  Rotations, automorphism
+key switching, CKKS and the bootstrapping helpers come with later slices.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .context import Context, log2_add, NEG_INF
+from .dcrt import (rt_add, rt_mul, rt_mul_scalar, rt_scale_down,
+                   rt_add_special_and_scale, rt_break_into_digits)
+from .keys import SKHandle, PubKey, KSMatrix, balanced_int, get_ks_matrix
+from .ops.modops import mul_mod, add_mod
+from .nt.numbth import inv_mod
+from .exceptions import LogicError, OutOfRangeError
+
+SAFETY_BITS = 1.0   # reference `safety` margin (log 2) in interval selection
+
+
+def ks_stacked_W(W: KSMatrix, rows: tuple):
+    """KS matrix columns restricted to the live rows and stacked over the
+    digit axis ([nd, R, N] each), cached per prime set on the matrix."""
+    cache = W.__dict__.setdefault("_stacked", {})
+    ent = cache.get(rows)
+    if ent is None:
+        idx = torch.tensor(rows, dtype=torch.int64, device=W.b[0].device)
+        ent = cache[rows] = (torch.stack([b.index_select(-2, idx)
+                                          for b in W.b]),
+                             torch.stack([a.index_select(-2, idx)
+                                          for a in W.a]))
+    return ent
+
+
+def ks_digit_mac(ctx: Context, digits, W: KSMatrix, k: int):
+    """sum_j digit_j * (b_j, a_j) as two stacked modular multiplies and a
+    fold over the digit axis (the KS MAC hot loop)."""
+    nd = len(digits)
+    Wb, Wa = ks_stacked_W(W, ctx.rows_of(k, True))
+    q, mu = ctx.dev_q(k, True)
+    D = torch.stack(digits, dim=-3)            # [..., nd, R, N]
+    pb = mul_mod(D, Wb[:nd], q, mu)
+    pa = mul_mod(D, Wa[:nd], q, mu)
+    sb, sa = pb[..., 0, :, :], pa[..., 0, :, :]
+    for j in range(1, nd):
+        sb = add_mod(sb, pb[..., j, :, :], q)
+        sa = add_mod(sa, pa[..., j, :, :], q)
+    return sb, sa
+
+
+@dataclass
+class Ctxt:
+    ctx: Context
+    pubkey: PubKey
+    parts: list                 # [(SKHandle, tensor [..., P, N])]
+    k: int                      # live ctxt-prime prefix length
+    special: bool               # special primes included?
+    ptxt_space: int
+    noise: float                # log2 canonical-embedding noise bound
+    intFactor: int = 1
+
+    # ------------------------------------------------------------------ utils
+    def copy(self) -> "Ctxt":
+        return Ctxt(self.ctx, self.pubkey, list(self.parts), self.k,
+                    self.special, self.ptxt_space, self.noise, self.intFactor)
+
+    def log2_modulus(self) -> float:
+        v = self.ctx.log2_q(self.k)
+        if self.special:
+            v += self.ctx.log2_special()
+        return v
+
+    def capacity(self) -> float:
+        """log2(Q/noise)."""
+        return self.log2_modulus() - self.noise
+
+    def _find_part(self, handle: SKHandle) -> int:
+        for i, (h, _) in enumerate(self.parts):
+            if h == handle:
+                return i
+        return -1
+
+    def mod_switch_added_noise(self) -> float:
+        """Reference Ctxt::modSwitchAddedNoiseBound."""
+        acc = NEG_INF
+        for h, _ in self.parts:
+            if h.is_one:
+                acc = log2_add(acc, 0.0)
+            else:
+                acc = log2_add(acc, h.powS * self.pubkey.sk_bound)
+        return acc + self.ctx.noise_uniform(math.log2(self.ptxt_space / 2.0))
+
+    # ------------------------------------------------------- mod switching
+    def mod_down_to(self, new_k: int, new_special: bool,
+                    measure: bool = True):
+        """Real modulus switching down (reference Ctxt::modDownToSet).
+
+        measure=True (the eager default, as in helib_tpu) also measures the
+        mod-switch rounding noise from the scale-down remainder: one host
+        transfer and FFT per part, of the first batch element.  Pipelines
+        pass measure=False, which is what helib_tpu does under a jit
+        trace."""
+        if new_k > self.k:
+            raise OutOfRangeError(
+                f"mod_down_to: target level {new_k} above current {self.k}")
+        if new_k == self.k and new_special == self.special:
+            return
+        added = self.mod_switch_added_noise()
+        drop_bits = self.log2_modulus()
+        new_parts, fracs = [], []
+        for h, data in self.parts:
+            out = rt_scale_down(self.ctx, data, self.k, self.special, new_k,
+                                new_special, self.ptxt_space,
+                                want_frac=measure)
+            if measure:
+                out, frac = out
+                fracs.append((h, frac))
+            new_parts.append((h, out))
+        if measure:
+            from .norms import embedding_largest_float_log2
+            measured = NEG_INF
+            for h, frac in fracs:
+                fr = frac.cpu().numpy()
+                if fr.ndim > 1:
+                    fr = fr.reshape(-1, fr.shape[-1])[0]
+                if not np.any(fr):
+                    continue
+                norm = embedding_largest_float_log2(fr, self.ctx.m,
+                                                    self.ctx.pal.pow2)
+                bound = norm + (h.powS * self.pubkey.sk_bound
+                                if not h.is_one else 0.0)
+                measured = log2_add(measured, bound)
+            if measured > NEG_INF:
+                added = min(added, measured)
+        self.parts = new_parts
+        self.k, self.special = new_k, new_special
+        drop_bits -= self.log2_modulus()
+        self.noise = log2_add(self.noise - drop_bits, added)
+
+    def drop_special_primes(self, measure: bool = True):
+        if self.special:
+            self.mod_down_to(self.k, False, measure)
+
+    def bring_to_k(self, new_k: int):
+        self.drop_special_primes()
+        if new_k < self.k:
+            self.mod_down_to(new_k, False)
+
+    def natural_k(self) -> int:
+        """Prefix k' targeting log2(q') ~ capacity + mod-switch added noise,
+        rounded down (role of reference naturalPrimeSet)."""
+        target = (self.capacity() + self.mod_switch_added_noise()
+                  + (self.ctx.log2_special() if self.special else 0.0))
+        target -= SAFETY_BITS
+        k = self.k
+        while k > 1 and self.ctx.log2_q(k) > target:
+            k -= 1
+        return k
+
+    # ------------------------------------------------------------- addition
+    def _match_factors(self, other: "Ctxt"):
+        """Equalize intFactor by scaling self (reference addCtxt)."""
+        if self.ptxt_space <= 2 or self.intFactor == other.intFactor:
+            return
+        pr = self.ptxt_space
+        lam = balanced_int(other.intFactor * inv_mod(self.intFactor, pr), pr)
+        self.parts = [(h, rt_mul_scalar(self.ctx, d, lam % pr, self.k,
+                                        self.special))
+                      for h, d in self.parts]
+        self.noise += math.log2(max(abs(lam), 1))
+        self.intFactor = other.intFactor
+
+    def add(self, other: "Ctxt"):
+        a, b = self, other.copy()
+        tk = min(a.k, b.k)
+        tsp = a.special and b.special
+        if (a.k, a.special) != (tk, tsp):
+            a.mod_down_to(tk, tsp)
+        if (b.k, b.special) != (tk, tsp):
+            b.mod_down_to(tk, tsp)
+        if a.ptxt_space != b.ptxt_space:
+            g = math.gcd(a.ptxt_space, b.ptxt_space)
+            a.ptxt_space = b.ptxt_space = g
+        a._match_factors(b)
+        for h, d in b.parts:
+            i = a._find_part(h)
+            if i >= 0:
+                a.parts[i] = (h, rt_add(a.ctx, a.parts[i][1], d, a.k,
+                                        a.special))
+            else:
+                a.parts.append((h, d))
+        a.noise = log2_add(a.noise, b.noise)
+        return a
+
+    # -------------------------------------------------------- multiplication
+    def tensor(self, other: "Ctxt"):
+        """Tensor product (reference Ctxt::tensorProduct)."""
+        ctx = self.ctx
+        if (self.k, self.special) != (other.k, other.special):
+            raise LogicError("tensor: operands on different prime sets; "
+                             "bring_to_k first")
+        k, sp = self.k, self.special
+        pr = math.gcd(self.ptxt_space, other.ptxt_space)
+        out_parts: list = []
+
+        def add_part(h, d):
+            for i, (h2, d2) in enumerate(out_parts):
+                if h2 == h:
+                    out_parts[i] = (h2, rt_add(ctx, d2, d, k, sp))
+                    return
+            out_parts.append((h, d))
+
+        for h1, d1 in self.parts:
+            for h2, d2 in other.parts:
+                h = h1.mul(h2)
+                if h is None:
+                    raise LogicError("incompatible part handles in tensor")
+                add_part(h, rt_mul(ctx, d1, d2, k, sp))
+        intF = 1
+        if pr > 2:
+            Q = 1
+            for q in ctx.primes_of(k, sp):
+                Q *= int(q)
+            intF = self.intFactor * other.intFactor % pr
+            intF = intF * (Q % pr) % pr
+        return Ctxt(ctx, self.pubkey, out_parts, k, sp, pr,
+                    self.noise + other.noise, intF)
+
+    def mul_low_level(self, other: "Ctxt") -> "Ctxt":
+        """multLowLvl: bring both to the lower natural level, tensor."""
+        a, b = self.copy(), other.copy()
+        a.drop_special_primes()
+        b.drop_special_primes()
+        tk = min(a.natural_k(), b.natural_k())
+        a.bring_to_k(tk)
+        b.bring_to_k(tk)
+        return a.tensor(b)
+
+    def multiply(self, other: "Ctxt", key) -> "Ctxt":
+        """key: a PubKey or SecKey holding the relinearization matrix."""
+        out = self.mul_low_level(other)
+        out.relinearize(key)
+        return out
+
+    # ------------------------------------------------------- key switching
+    def relinearize(self, key, to_key: int = 0):
+        """Reference Ctxt::reLinearize: mod-up by the special primes,
+        key-switch every non-canonical part, leave the specials in."""
+        ctx = self.ctx
+        if all(h.is_one or h.is_base(to_key) for h, _ in self.parts):
+            return self
+        self.drop_special_primes()
+        k = self.k
+        new_noise = self.noise + ctx.log2_special()
+        acc: dict = {}
+
+        def add_acc(h, d):
+            acc[h] = rt_add(ctx, acc[h], d, k, True) if h in acc else d
+
+        ks_noise = NEG_INF
+        for h, d in self.parts:
+            if h.is_one or h.is_base(to_key):
+                add_acc(h, rt_add_special_and_scale(ctx, d, k))
+                continue
+            W = get_ks_matrix(key, h, to_key=to_key)
+            if W.ptxt_space > 1 and self.ptxt_space > 1:
+                self.ptxt_space = math.gcd(W.ptxt_space, self.ptxt_space)
+            digits, digit_noise = rt_break_into_digits(ctx, d, k)
+            sb, sa = ks_digit_mac(ctx, digits, W, k)
+            add_acc(SKHandle(0, 1, 0), sb)
+            add_acc(SKHandle(1, 1, to_key), sa)
+            ks_noise = log2_add(ks_noise, digit_noise + W.noise)
+        self.parts = list(acc.items())
+        self.k, self.special = k, True
+        from .timing import stats_update
+        if ks_noise > new_noise:
+            from .log import warning
+            warning(f"KS-noise-ratio={2.0**(ks_noise - new_noise):.2f}",
+                    once=True)
+        stats_update("KS-noise-ratio", 2.0 ** min(ks_noise - new_noise, 64.0))
+        self.noise = log2_add(new_noise, ks_noise)
+        return self

@@ -1,0 +1,346 @@
+"""Batched number-theoretic transforms over the RNS limb axis
+(helib_tpu.ops.ntt).
+
+  * power-of-2 m : negacyclic radix-2 NTT of size N = m/2;
+  * odd m        : full m-point cyclic DFT via Bluestein, with the length-B
+                   convolution done exactly over three 30-bit auxiliary primes
+                   and CRT'd back mod q.
+
+Tables are built on the host with exact integer numpy, exactly as helib_tpu
+builds them, and keep only the natural per-stage layout (`tw`, `tw_sh`,
+`itw`, `itw_sh`, `ninv`, `khat`/`khat_sh` as [3, P, B]); the TPU kernels'
+coarse/fine relayouts have no counterpart here.  `Pow2NTT.flat()` gives the
+same stage tables concatenated into one [P, n] row per prime (stage s at
+[2^s, 2^(s+1)), n^-1 at entry 0 of the inverse table), which is what the
+CUDA convolution kernel reads.
+
+Transforms run on residue tensors [..., P, n] and keep helib_tpu's output
+order (`eval_exponents`): no bit reversal anywhere.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..nt.numbth import root_of_unity, inv_mod
+from ..nt.primegen import gen_aux_primes, AUX_POW2
+from .modops import (add_mod, sub_mod, mul_mod_shoup, shoup, reduce_u32,
+                     to_device)
+from ..exceptions import assert_true
+
+
+# ---------------------------------------------------------------------------
+# table construction (host, exact ints / uint64 numpy)
+# ---------------------------------------------------------------------------
+
+def power_table(r: int, q: int, length: int) -> np.ndarray:
+    """[1, r, r^2, ..., r^(length-1)] mod q, vectorized (q < 2^31)."""
+    pw = np.array([1], dtype=np.uint64)
+    q64 = np.uint64(q)
+    while len(pw) < length:
+        step = pow(r, len(pw), q)
+        pw = np.concatenate([pw, pw * np.uint64(step) % q64])
+    return pw[:length].astype(np.uint32)
+
+
+def _np_barrett(x: np.ndarray, q: np.ndarray, mu: np.ndarray) -> np.ndarray:
+    """x < 2^60 mod q (q in (2^29, 2^30)) without u64 division."""
+    t = ((x >> np.uint64(29)) * mu) >> np.uint64(32)
+    r = x - t * q
+    r = np.where(r >= q, r - q, r)
+    return np.where(r >= q, r - q, r)
+
+
+def ntt_np(x: np.ndarray, stage_tw: list[np.ndarray], qs: np.ndarray):
+    """Host numpy forward NTT (same stage structure as the device path);
+    x [..., P, n], stage_tw[s] [P, 2^s] uint64, qs [P].  Table builds only."""
+    n = x.shape[-1]
+    q = qs[:, None, None].astype(np.uint64)
+    mu = ((np.uint64(1) << np.uint64(61)) // q)
+    x = x.astype(np.uint64)
+    for s, w in enumerate(stage_tw):
+        m = 1 << s
+        half = n // (2 * m)
+        xr = x.reshape(*x.shape[:-1], m, 2, half)
+        u, v = xr[..., 0, :], xr[..., 1, :]
+        wv = _np_barrett(v * w[..., :, None].astype(np.uint64), q, mu)
+        s1 = u + wv
+        s1 = np.where(s1 >= q, s1 - q, s1)
+        s2 = u + q - wv
+        s2 = np.where(s2 >= q, s2 - q, s2)
+        x = np.stack([s1, s2], axis=-2).reshape(*x.shape[:-1], n)
+    return x
+
+
+def _stage_exponents(n: int, e0: int, ord_root: int):
+    """Symbolic DIT splitting.  Block i at stage s represents reduction mod
+    (X^(n/2^s) - r^E[i]) for a root r of order `ord_root`.  Returns
+    (per-stage twiddle exponent lists, final evaluation exponents)."""
+    stages = []
+    E = [e0]
+    while len(E) < n:
+        tw = [e // 2 for e in E]
+        stages.append(tw)
+        E = [x for e in tw for x in (e, e + ord_root // 2)]
+    return stages, E
+
+
+@dataclass
+class Pow2NTT:
+    """Host tables for a batched radix-2 NTT over primes qs, size n.
+
+    negacyclic=True : ring Z_q[X]/(X^n+1), root psi of order 2n.
+    negacyclic=False: cyclic DFT of size n, root omega of order n.
+    """
+    qs: np.ndarray            # [P] uint32
+    n: int
+    negacyclic: bool
+    tw: list = field(init=False)                    # stage s: [P, 2^s]
+    tw_sh: list = field(init=False)
+    itw: list = field(init=False)
+    itw_sh: list = field(init=False)
+    ninv: np.ndarray = field(init=False)            # [P, 1]
+    ninv_sh: np.ndarray = field(init=False)
+    eval_exponents: np.ndarray = field(init=False)  # [n] exponents of the root
+    roots: list = field(init=False)
+
+    def __post_init__(self):
+        n = self.n
+        qs = np.asarray(self.qs, dtype=np.uint64)
+        assert_true(n & (n - 1) == 0, 'invariant: n & (n - 1) == 0')
+        ordr = 2 * n if self.negacyclic else n
+        e0 = n if self.negacyclic else 0
+        stage_exps, eval_exps = _stage_exponents(n, e0, ordr)
+        self.eval_exponents = np.array(eval_exps, dtype=np.int64)
+        self.roots = [root_of_unity(ordr, int(q)) for q in qs]
+        pw = np.stack([power_table(r, int(q), ordr)
+                       for r, q in zip(self.roots, qs)])
+        self.tw, self.tw_sh, self.itw, self.itw_sh = [], [], [], []
+        for exps in stage_exps:
+            e = np.array(exps, dtype=np.int64) % ordr
+            wt = pw[:, e]
+            iwt = pw[:, (-e) % ordr]
+            self.tw.append(wt.astype(np.uint32))
+            self.tw_sh.append(shoup(wt, qs[:, None]))
+            self.itw.append(iwt.astype(np.uint32))
+            self.itw_sh.append(shoup(iwt, qs[:, None]))
+        self.ninv = np.array([inv_mod(n, int(q)) for q in qs],
+                             dtype=np.uint32)[:, None]
+        self.ninv_sh = shoup(self.ninv, qs[:, None])
+
+    def flat(self) -> dict:
+        """The stage tables concatenated per prime: [P, n] each, stage s at
+        [2^s, 2^(s+1)); entry 0 is 0 (forward) or n^-1 (inverse)."""
+        zero = np.zeros((len(self.qs), 1), np.uint32)
+        return {"tw_all": np.concatenate([zero] + self.tw, axis=1),
+                "tw_all_sh": np.concatenate([zero] + self.tw_sh, axis=1),
+                "itw_all": np.concatenate([self.ninv] + self.itw, axis=1),
+                "itw_all_sh": np.concatenate([self.ninv_sh] + self.itw_sh,
+                                             axis=1)}
+
+    def tree(self, device, lead: int = 0) -> dict:
+        """Device tables (int32 bit patterns), with `lead` unit axes inserted
+        after the prime axis so the transform broadcasts over extra dims
+        between P and n."""
+        def dev(a):
+            return to_device(a.reshape(a.shape[0], *([1] * lead),
+                                       *a.shape[1:]), device)
+
+        qs = np.asarray(self.qs, dtype=np.uint32)[:, None]
+        return {"q": dev(qs), "ninv": dev(self.ninv),
+                "ninv_sh": dev(self.ninv_sh),
+                "tw": [dev(a) for a in self.tw],
+                "tw_sh": [dev(a) for a in self.tw_sh],
+                "itw": [dev(a) for a in self.itw],
+                "itw_sh": [dev(a) for a in self.itw_sh]}
+
+
+# ---------------------------------------------------------------------------
+# staged transforms (plain torch; the reference semantics)
+# ---------------------------------------------------------------------------
+
+def ntt_pow2_fwd(x, t):
+    """x: [..., P, n] coefficients -> evaluations in `eval_exponents` order."""
+    n = x.shape[-1]
+    q = t["q"][..., None]  # [.., P, 1, 1]
+    for w, ws in zip(t["tw"], t["tw_sh"]):
+        m = w.shape[-1]
+        half = n // (2 * m)
+        xr = x.reshape(*x.shape[:-1], m, 2, half)
+        u, v = xr[..., 0, :], xr[..., 1, :]
+        wv = mul_mod_shoup(v, w[..., :, None], ws[..., :, None], q)
+        y = torch.stack([add_mod(u, wv, q), sub_mod(u, wv, q)], dim=-2)
+        x = y.reshape(*y.shape[:-3], n)
+    return x
+
+
+def ntt_pow2_inv(x, t):
+    """Inverse of ntt_pow2_fwd (output: natural coefficient order)."""
+    n = x.shape[-1]
+    q = t["q"][..., None]
+    for w, ws in zip(reversed(t["itw"]), reversed(t["itw_sh"])):
+        m = w.shape[-1]
+        half = n // (2 * m)
+        xr = x.reshape(*x.shape[:-1], m, 2, half)
+        a, b = xr[..., 0, :], xr[..., 1, :]
+        u = add_mod(a, b, q)
+        v = mul_mod_shoup(sub_mod(a, b, q), w[..., :, None], ws[..., :, None],
+                          q)
+        y = torch.stack([u, v], dim=-2)
+        x = y.reshape(*y.shape[:-3], n)
+    return mul_mod_shoup(x, t["ninv"], t["ninv_sh"], t["q"])
+
+
+# ---------------------------------------------------------------------------
+# Bluestein general-m DFT
+# ---------------------------------------------------------------------------
+
+_AUX_CACHE: dict = {}
+
+
+def aux_primes() -> np.ndarray:
+    if "qs" not in _AUX_CACHE:
+        _AUX_CACHE["qs"] = np.array(gen_aux_primes(3), dtype=np.uint32)
+    return _AUX_CACHE["qs"]
+
+
+def aux_ntt(B: int) -> Pow2NTT:
+    key = ("ntt", B)
+    if key not in _AUX_CACHE:
+        _AUX_CACHE[key] = Pow2NTT(aux_primes(), B, negacyclic=False)
+    return _AUX_CACHE[key]
+
+
+@dataclass
+class BluesteinTables:
+    """Per-(prime set, m) host tables for the full-m DFT mod each q in qs."""
+    qs: np.ndarray                      # [P]
+    m: int
+    inverse: bool
+    B: int = field(init=False)
+    host: dict = field(init=False)
+
+    def __post_init__(self):
+        m = self.m
+        qs = np.asarray(self.qs, dtype=np.uint64)
+        assert_true(m % 2 == 1, "Bluestein path expects odd m")
+        B = 1 << int(np.ceil(np.log2(2 * m - 1)))
+        assert_true(B <= (1 << AUX_POW2), 'invariant: B <= (1 << AUX_POW2)')
+        self.B = B
+        P = len(qs)
+        raux = aux_primes().astype(np.uint64)
+        nttB = aux_ntt(B)
+        tw64 = [a.astype(np.uint64) for a in nttB.tw]
+
+        u_in = np.empty((P, m), dtype=np.uint32)
+        u_out = np.empty((P, m), dtype=np.uint32)
+        khat = np.empty((3, P, B), dtype=np.uint32)
+        inv2 = (m + 1) // 2
+        isq = (np.arange(m, dtype=np.int64) ** 2) % m
+        for k, q in enumerate(qs):
+            q = int(q)
+            w = root_of_unity(m, q)
+            if self.inverse:
+                w = inv_mod(w, q)
+            u = pow(w, inv2, q)
+            upw = power_table(u, q, m)
+            uipw = power_table(inv_mod(u, q), q, m)
+            u_in[k] = upw[isq]
+            if self.inverse:
+                minv = np.uint64(inv_mod(m, q))
+                u_out[k] = (u_in[k].astype(np.uint64) * minv % np.uint64(q)
+                            ).astype(np.uint32)
+            else:
+                u_out[k] = u_in[k]
+            # kernel bb[d] = u^{-d^2}, wrapped negative indices
+            usq_inv = uipw[isq]
+            bb = np.zeros(B, dtype=np.uint32)
+            bb[:m] = usq_inv
+            bb[B - m + 1:] = usq_inv[1:][::-1]
+            b3 = bb[None, :].astype(np.uint64) % raux[:, None]
+            khat[:, k, :] = ntt_np(b3, tw64, raux).astype(np.uint32)
+
+        R = int(raux[0]) * int(raux[1]) * int(raux[2])
+        Rt = [R // int(r) for r in raux]
+        yt_inv = np.array([inv_mod(Rt[t] % int(raux[t]), int(raux[t]))
+                           for t in range(3)], dtype=np.uint32)
+        Rt_mod_q = np.array([[Rt[t] % int(q) for q in qs] for t in range(3)],
+                            dtype=np.uint32)           # [3, P]
+        negR_mod_q = np.array([(-R) % int(q) for q in qs], dtype=np.uint32)
+        self.host = {
+            "q": qs.astype(np.uint32)[:, None],              # [P, 1]
+            "u_in": u_in,
+            "u_in_sh": shoup(u_in, qs[:, None]),
+            "u_out": u_out,
+            "u_out_sh": shoup(u_out, qs[:, None]),
+            "khat": khat,                                    # [3, P, B]
+            "khat_sh": shoup(khat, raux[:, None, None]),
+            "Rt_mod_q": Rt_mod_q[:, :, None],                # [3, P, 1]
+            "Rt_mod_q_sh": shoup(Rt_mod_q, qs[None, :])[:, :, None],
+            "negR": negR_mod_q[:, None],                     # [P, 1]
+            "negR_sh": shoup(negR_mod_q, qs)[:, None],
+            "yt_inv": yt_inv[:, None, None],                 # [3, 1, 1]
+            "yt_inv_sh": shoup(yt_inv, raux)[:, None, None],
+        }
+
+    # prime-row tables ([P, ...] or [3, P, ...]); the rest is per aux prime
+    _ROW_KEYS = ("q", "u_in", "u_in_sh", "u_out", "u_out_sh", "negR",
+                 "negR_sh")
+    _AUX_ROW_KEYS = ("khat", "khat_sh", "Rt_mod_q", "Rt_mod_q_sh")
+
+    def tree(self, device, rows, aux: dict) -> dict:
+        """Device tables restricted to the prime rows `rows`; `aux` is the
+        shared auxiliary-prime table dict (`aux_tree`)."""
+        idx = np.asarray(rows)
+        out = {k: to_device(self.host[k][idx], device)
+               for k in self._ROW_KEYS}
+        out.update({k: to_device(self.host[k][:, idx], device)
+                    for k in self._AUX_ROW_KEYS})
+        out["yt_inv"] = to_device(self.host["yt_inv"], device)
+        out["yt_inv_sh"] = to_device(self.host["yt_inv_sh"], device)
+        out.update(aux)
+        return out
+
+
+def aux_tree(B: int, device) -> dict:
+    """Auxiliary-prime tables shared by every Bluestein tree of size B:
+    the staged NTT tables broadcast over the ctxt-prime axis ([3, 1, ...]),
+    their flat [3, B] form for the CUDA kernel, and the CRT constants."""
+    nttB = aux_ntt(B)
+    raux = aux_primes()
+    flat = {k: to_device(v, device) for k, v in nttB.flat().items()}
+    inv_r = (1.0 / raux.astype(np.float64)).astype(np.float32)
+    return {"aux": {**nttB.tree(device, lead=1), **flat},
+            "aux_q": to_device(raux[:, None, None], device),     # [3, 1, 1]
+            "inv_r_f32": [float(v) for v in inv_r]}
+
+
+def bluestein_apply(x, t, m: int, B: int):
+    """Full-m DFT (per table direction) of x: [..., P, m] -> [..., P, m].
+
+    The staged, row-major form of helib_tpu's bluestein_apply: lift onto the
+    three auxiliary primes as [..., 3, P, B], convolve each row with its
+    spectral kernel (ops.conv: the CUDA kernel on a GPU), CRT back mod q."""
+    from .conv import conv
+    q = t["q"]
+    a = mul_mod_shoup(x, t["u_in"], t["u_in_sh"], q)           # [..., P, m]
+    a3 = reduce_u32(a.unsqueeze(-3), t["aux_q"])               # [..., 3, P, m]
+    ap = F.pad(a3, (0, B - m))
+    p = conv(ap, t["aux"], t["khat"], t["khat_sh"])            # [..., 3, P, B]
+    y = mul_mod_shoup(p, t["yt_inv"], t["yt_inv_sh"], t["aux_q"])
+    # float32 CRT lift floor(sum_t y_t / r_t + 1/4), summed left to right
+    yf = y.to(torch.float32)
+    s = yf[..., 0, :, :] * t["inv_r_f32"][0]
+    s = s + yf[..., 1, :, :] * t["inv_r_f32"][1]
+    s = s + yf[..., 2, :, :] * t["inv_r_f32"][2]
+    alpha = torch.floor(s + 0.25).to(torch.int32)              # [..., P, B]
+    terms = mul_mod_shoup(y, t["Rt_mod_q"], t["Rt_mod_q_sh"], q.unsqueeze(0))
+    acc = add_mod(add_mod(terms[..., 0, :, :], terms[..., 1, :, :], q),
+                  terms[..., 2, :, :], q)
+    corr = mul_mod_shoup(alpha, t["negR"], t["negR_sh"], q)
+    V = add_mod(acc, corr, q)[..., :m]
+    return mul_mod_shoup(V, t["u_out"], t["u_out_sh"], q)

@@ -1,0 +1,67 @@
+"""Import hygiene of the PyTorch port: helib_tpu_torch and chip_smoke.py
+import neither JAX nor anything of helib_tpu."""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+
+import torch
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "helib_tpu_torch")
+
+
+def _port_modules():
+    import helib_tpu_torch
+    return sorted(m.name for m in pkgutil.walk_packages(
+        helib_tpu_torch.__path__, "helib_tpu_torch."))
+
+
+def _port_sources():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PKG):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def test_importing_every_module_loads_no_jax():
+    mods = _port_modules()
+    assert "helib_tpu_torch.ops.conv" in mods and len(mods) >= 15
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "import chip_smoke\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'helib_tpu' or "
+            "m.startswith('helib_tpu.'))\n"
+            "assert not bad, bad\n"
+            "print('ok', len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")
+
+
+def test_sources_have_no_jax_or_reference_imports():
+    offenders = []
+    for path in _port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                if top in ("jax", "jaxlib", "helib_tpu"):
+                    offenders.append(f"{os.path.relpath(path, REPO)}:"
+                                     f"{node.lineno} {name}")
+    assert len(_port_sources()) >= 16
+    assert not offenders, offenders
