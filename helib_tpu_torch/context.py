@@ -2,10 +2,12 @@
 (helib_tpu.context).
 
 Same parameters, prime chain, digit partition and noise helpers as
-helib_tpu's Context, with the tables on an explicit torch `device`.  The
-device defaults to "cuda"; on a host without a GPU the constructor raises
-unless the caller asks for device="cpu".  There is no jit cache: PyTorch runs
-eagerly, so `fwd_ntt`/`inv_ntt` call the transform directly.
+helib_tpu's Context, for BGV and CKKS, with the tables on an explicit torch
+`device`.  The device defaults to "cuda"; on a host without a GPU the
+constructor raises unless the caller asks for device="cpu".  There is no jit
+cache: PyTorch runs eagerly, so `fwd_ntt`/`inv_ntt` call the transform
+directly -- the fused power-of-2 NTT (ops/ntt_fused.py) for power-of-2 m,
+the Bluestein DFT (ops/ntt.py, its convolution in ops/conv.py) for odd m.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 from .palgebra import PAlgebra
 from .exceptions import InvalidArgument
 from .nt.primegen import gen_primes, PRIME_BITS
-from .ops.ntt import BluesteinTables, aux_tree, bluestein_apply
+from .ops.ntt import Pow2NTT, BluesteinTables, aux_tree, bluestein_apply
 from .ops import modops
 
 
@@ -61,11 +63,11 @@ def resolve_device(device) -> torch.device:
 @dataclass
 class Context:
     m: int
-    p: int                  # plaintext prime
-    r: int = 1              # plaintext space p^r
+    p: int                  # plaintext prime (BGV); -1 for CKKS
+    r: int = 1              # plaintext space p^r (BGV); CKKS: log2 precision
     bits: int = 300         # target log2 of the full ctxt-prime product
     c: int = 3              # number of key-switching digits/columns
-    scheme: str = "bgv"     # only BGV in this port so far
+    scheme: str = "bgv"     # "bgv" | "ckks"
     stdev: float = 3.2      # fresh-noise Gaussian stdev
     scale: float = 10.0     # high-probability bound multiplier
     device: torch.device | str = "cuda"
@@ -79,13 +81,10 @@ class Context:
     ntt_inv: object = field(init=False)
 
     def __post_init__(self):
-        if self.scheme != "bgv":
-            raise InvalidArgument(f"scheme {self.scheme!r} is not ported yet")
-        if self.m % 2 == 0:
-            raise InvalidArgument("power-of-2 m needs the fused NTT kernel "
-                                  "(helib_tpu pallas_ntt), not ported yet")
+        if self.scheme not in ("bgv", "ckks"):
+            raise InvalidArgument(f"unknown scheme {self.scheme!r}")
         self.device = resolve_device(self.device)
-        self.pal = PAlgebra(self.m, self.p)
+        self.pal = PAlgebra(self.m, self.p if self.scheme == "bgv" else -1)
         n_ctxt = max(2, math.ceil(self.bits / (PRIME_BITS - 0.1)))
         # digits partition: c contiguous groups, as equal as possible
         base, rem = divmod(n_ctxt, self.c)
@@ -97,13 +96,19 @@ class Context:
             acc += s
         self.digits = bounds
         n_special = max(e - s for s, e in bounds)
+        excl = () if self.scheme == "ckks" else (self.p,)
         primes = gen_primes(self.m, n_ctxt + n_special,
-                            exclude=frozenset((self.p,)))
+                            exclude=frozenset(excl))
         self.qs = np.array(primes[:n_ctxt], dtype=np.uint32)
         self.sp = np.array(primes[n_ctxt:], dtype=np.uint32)
         self.all_q = np.concatenate([self.qs, self.sp])
-        self.ntt_fwd = BluesteinTables(self.all_q, self.m, inverse=False)
-        self.ntt_inv = BluesteinTables(self.all_q, self.m, inverse=True)
+        if self.pal.pow2:
+            ntt = Pow2NTT(self.all_q, self.pal.n_eval, negacyclic=True)
+            self.pal.eval_exponents = ntt.eval_exponents
+            self.ntt_fwd = self.ntt_inv = ntt
+        else:
+            self.ntt_fwd = BluesteinTables(self.all_q, self.m, inverse=False)
+            self.ntt_inv = BluesteinTables(self.all_q, self.m, inverse=True)
         self._cache: dict = {}
 
     def cached(self, key, build):
@@ -205,10 +210,18 @@ class Context:
         return self.cached(("q", k, special), build)
 
     def ntt_tree(self, rows: tuple) -> dict:
-        """Device Bluestein tables restricted to the given prime rows
+        """Device transform tables restricted to the given prime rows
         (indices into all_q: ctxt primes are rows [0, L), special primes
-        [L, L+S))."""
+        [L, L+S)).  Power-of-2 m: one dict for both directions with the
+        stage tables and their flat form (`flat`, for the CUDA kernel);
+        odd m: the Bluestein tables of each direction."""
         def build():
+            if self.pal.pow2:
+                flat = {k: modops.to_device(v, self.device)
+                        for k, v in self.ntt_fwd.flat(rows).items()}
+                t = {**self.ntt_fwd.tree(self.device, rows=rows),
+                     "flat": flat}
+                return {"fwd": t, "inv": t}
             aux = self.cached(("aux",), lambda: aux_tree(self.ntt_fwd.B,
                                                          self.device))
             return {"fwd": self.ntt_fwd.tree(self.device, rows, aux),
@@ -222,13 +235,19 @@ class Context:
         return tuple(rows)
 
     def fwd_ntt(self, coeffs, rows: tuple):
-        """coeffs [..., P, m] residues (natural order) -> eval domain."""
-        return bluestein_apply(coeffs, self.ntt_tree(rows)["fwd"], self.m,
-                               self.ntt_fwd.B)
+        """coeffs [..., P, N] residues (natural order) -> eval domain."""
+        return self._transform(coeffs, rows, inverse=False)
 
     def inv_ntt(self, evals, rows: tuple):
-        return bluestein_apply(evals, self.ntt_tree(rows)["inv"], self.m,
-                               self.ntt_inv.B)
+        return self._transform(evals, rows, inverse=True)
+
+    def _transform(self, x, rows: tuple, inverse: bool):
+        t = self.ntt_tree(rows)["inv" if inverse else "fwd"]
+        if self.pal.pow2:
+            from .ops import ntt_fused
+            return ntt_fused.ntt(x, t, inverse)
+        tab = self.ntt_inv if inverse else self.ntt_fwd
+        return bluestein_apply(x, t, self.m, tab.B)
 
     def __repr__(self):
         return (f"Context(scheme={self.scheme}, m={self.m}, p={self.p}, "

@@ -9,12 +9,16 @@ reads the arrays off its objects (`np.asarray(jax_array)`), e.g.
     sk = seckey_from_arrays(ctx, [{"coeffs": ..., "bound": ..., "full": ...}],
                             {key: ksmatrix_arrays(W) for key, W in ...})
 
-A handle is carried as the tuple (powS, powX, keyID).
+A handle is carried as the tuple (powS, powX, keyID); a CKKS scale as a
+Fraction.
 """
 
 from __future__ import annotations
 
+from fractions import Fraction
+
 import numpy as np
+import torch
 
 from .context import Context
 from .ctxt import Ctxt
@@ -51,6 +55,12 @@ def _handle(h) -> SKHandle:
     return h if isinstance(h, SKHandle) else SKHandle(*h)
 
 
+def _host(x) -> np.ndarray:
+    """A residue tensor of either package as a numpy uint32 array."""
+    return (to_host(x) if isinstance(x, torch.Tensor)
+            else np.asarray(x, dtype=np.uint32))
+
+
 def ksmatrix_from_arrays(ctx: Context, from_handle, ptxt_space: int, b, a,
                          noise: float, prg_seed=None,
                          to_key: int = 0) -> KSMatrix:
@@ -65,12 +75,10 @@ def ksmatrix_arrays(W) -> dict:
     """The fields of a KSMatrix-like object (either package's) as plain
     values and numpy arrays, the keyword arguments of
     `ksmatrix_from_arrays`."""
-    arr = lambda x: (to_host(x) if hasattr(x, "is_cuda")
-                     else np.asarray(x, dtype=np.uint32))
     h = W.from_handle
     return {"from_handle": (h.powS, h.powX, h.keyID),
-            "ptxt_space": W.ptxt_space, "b": [arr(x) for x in W.b],
-            "a": [arr(x) for x in W.a], "noise": W.noise,
+            "ptxt_space": W.ptxt_space, "b": [_host(x) for x in W.b],
+            "a": [_host(x) for x in W.a], "noise": W.noise,
             "prg_seed": W.prg_seed, "to_key": W.to_key}
 
 
@@ -97,14 +105,26 @@ def pubkey_from_arrays(ctx: Context, enc_key: list, enc_noise: float,
 
 def ctxt_from_arrays(ctx: Context, pubkey: PubKey, parts: list, k: int,
                      special: bool, ptxt_space: int, noise: float,
-                     intFactor: int = 1) -> Ctxt:
-    """A Ctxt from parts [(handle, [..., P, N] uint32 array), ...]."""
+                     intFactor: int = 1, ratFactor=1,
+                     ptxtMag: float = 1.0) -> Ctxt:
+    """A Ctxt from parts [(handle, [..., P, N] uint32 array), ...] and its
+    metadata (ratFactor and ptxtMag: the CKKS scale and magnitude)."""
     return Ctxt(ctx, pubkey, [(_handle(h), to_device(d, ctx.device))
                               for h, d in parts],
                 int(k), bool(special), int(ptxt_space), float(noise),
-                int(intFactor))
+                int(intFactor), Fraction(ratFactor), float(ptxtMag))
 
 
-def ctxt_to_arrays(ct: Ctxt) -> list:
+def ctxt_to_arrays(ct) -> list:
     """The reverse: parts as [((powS, powX, keyID), numpy uint32), ...]."""
-    return [((h.powS, h.powX, h.keyID), to_host(d)) for h, d in ct.parts]
+    return [((h.powS, h.powX, h.keyID), _host(d)) for h, d in ct.parts]
+
+
+def ctxt_arrays(ct) -> dict:
+    """The parts and metadata of a Ctxt-like object (either package's),
+    the keyword arguments of `ctxt_from_arrays` after ctx and pubkey."""
+    return {"parts": ctxt_to_arrays(ct), "k": ct.k, "special": ct.special,
+            "ptxt_space": ct.ptxt_space, "noise": ct.noise,
+            "intFactor": ct.intFactor,
+            "ratFactor": Fraction(getattr(ct, "ratFactor", 1)),
+            "ptxtMag": getattr(ct, "ptxtMag", 1.0)}

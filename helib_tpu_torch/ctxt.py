@@ -1,20 +1,22 @@
-"""BGV ciphertext with noise bookkeeping (helib_tpu.ctxt).
+"""BGV and CKKS ciphertexts with noise bookkeeping (helib_tpu.ctxt).
 
 The noise state machine follows helib_tpu's formulas exactly; magnitudes are
-log2-domain Python floats.  Parts are [..., P, N] tensors, so one Ctxt can
-carry a batch of ciphertexts in its leading dims.  Rotations, automorphism
-key switching, CKKS and the bootstrapping helpers come with later slices.
+log2-domain Python floats, the CKKS scale `ratFactor` an exact Fraction.
+Parts are [..., P, N] tensors, so one Ctxt can carry a batch of ciphertexts
+in its leading dims.  Rotations, automorphism key switching and the
+bootstrapping helpers come with later slices.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from fractions import Fraction
 
 import numpy as np
 import torch
 
-from .context import Context, log2_add, NEG_INF
+from .context import Context, log2_add, log2_sum, NEG_INF
 from .dcrt import (rt_add, rt_mul, rt_mul_scalar, rt_scale_down,
                    rt_add_special_and_scale, rt_break_into_digits)
 from .keys import SKHandle, PubKey, KSMatrix, balanced_int, get_ks_matrix
@@ -55,6 +57,15 @@ def ks_digit_mac(ctx: Context, digits, W: KSMatrix, k: int):
     return sb, sa
 
 
+def frac_log2(f) -> float:
+    """log2 of a positive Fraction/int without float overflow."""
+    f = Fraction(f)
+    n, d = f.numerator, f.denominator
+    return ((n.bit_length() - 1) + math.log2(n / (1 << (n.bit_length() - 1)))
+            - ((d.bit_length() - 1)
+               + math.log2(d / (1 << (d.bit_length() - 1)))))
+
+
 @dataclass
 class Ctxt:
     ctx: Context
@@ -65,11 +76,18 @@ class Ctxt:
     ptxt_space: int
     noise: float                # log2 canonical-embedding noise bound
     intFactor: int = 1
+    ratFactor: object = 1       # CKKS scale (exact Fraction/int)
+    ptxtMag: float = 1.0        # CKKS bound on |plaintext| (linear)
 
     # ------------------------------------------------------------------ utils
     def copy(self) -> "Ctxt":
         return Ctxt(self.ctx, self.pubkey, list(self.parts), self.k,
-                    self.special, self.ptxt_space, self.noise, self.intFactor)
+                    self.special, self.ptxt_space, self.noise, self.intFactor,
+                    self.ratFactor, self.ptxtMag)
+
+    @property
+    def is_ckks(self) -> bool:
+        return self.ctx.scheme == "ckks"
 
     def log2_modulus(self) -> float:
         v = self.ctx.log2_q(self.k)
@@ -80,6 +98,14 @@ class Ctxt:
     def capacity(self) -> float:
         """log2(Q/noise)."""
         return self.log2_modulus() - self.noise
+
+    def is_correct(self) -> bool:
+        return self.capacity() > 1.0
+
+    def error_bound(self) -> float:
+        """CKKS: bound on |decrypted - plaintext| in plaintext units
+        = noise bound / ratFactor, linear domain."""
+        return 2.0 ** (self.noise - frac_log2(self.ratFactor))
 
     def _find_part(self, handle: SKHandle) -> int:
         for i, (h, _) in enumerate(self.parts):
@@ -95,7 +121,8 @@ class Ctxt:
                 acc = log2_add(acc, 0.0)
             else:
                 acc = log2_add(acc, h.powS * self.pubkey.sk_bound)
-        return acc + self.ctx.noise_uniform(math.log2(self.ptxt_space / 2.0))
+        ps = 1 if self.is_ckks else self.ptxt_space
+        return acc + self.ctx.noise_uniform(math.log2(ps / 2.0))
 
     # ------------------------------------------------------- mod switching
     def mod_down_to(self, new_k: int, new_special: bool,
@@ -103,10 +130,11 @@ class Ctxt:
         """Real modulus switching down (reference Ctxt::modDownToSet).
 
         measure=True (the eager default, as in helib_tpu) also measures the
-        mod-switch rounding noise from the scale-down remainder: one host
-        transfer and FFT per part, of the first batch element.  Pipelines
-        pass measure=False, which is what helib_tpu does under a jit
-        trace."""
+        BGV mod-switch rounding noise from the scale-down remainder: one
+        host transfer and FFT per part, of the first batch element.
+        Pipelines pass measure=False, which is what helib_tpu does under a
+        jit trace.  CKKS is never measured, as in helib_tpu; its scale
+        ratFactor is divided by the dropped primes."""
         if new_k > self.k:
             raise OutOfRangeError(
                 f"mod_down_to: target level {new_k} above current {self.k}")
@@ -114,11 +142,14 @@ class Ctxt:
             return
         added = self.mod_switch_added_noise()
         drop_bits = self.log2_modulus()
+        ps = 1 if self.is_ckks else self.ptxt_space
+        measure = measure and not self.is_ckks
+        dropped = set(self.ctx.rows_of(self.k, self.special)) - set(
+            self.ctx.rows_of(new_k, new_special))
         new_parts, fracs = [], []
         for h, data in self.parts:
             out = rt_scale_down(self.ctx, data, self.k, self.special, new_k,
-                                new_special, self.ptxt_space,
-                                want_frac=measure)
+                                new_special, ps, want_frac=measure)
             if measure:
                 out, frac = out
                 fracs.append((h, frac))
@@ -143,6 +174,11 @@ class Ctxt:
         self.k, self.special = new_k, new_special
         drop_bits -= self.log2_modulus()
         self.noise = log2_add(self.noise - drop_bits, added)
+        if self.is_ckks:
+            D = 1
+            for r in dropped:
+                D *= int(self.ctx.all_q[r])
+            self.ratFactor = Fraction(self.ratFactor) / D
 
     def drop_special_primes(self, measure: bool = True):
         if self.special:
@@ -154,10 +190,17 @@ class Ctxt:
             self.mod_down_to(new_k, False)
 
     def natural_k(self) -> int:
-        """Prefix k' targeting log2(q') ~ capacity + mod-switch added noise,
-        rounded down (role of reference naturalPrimeSet)."""
+        """Prefix k' targeting log2(q') ~ capacity + mod-switch added noise
+        (role of reference naturalPrimeSet): for BGV rounded down, for CKKS
+        rounded up (keeps accuracy)."""
         target = (self.capacity() + self.mod_switch_added_noise()
                   + (self.ctx.log2_special() if self.special else 0.0))
+        if self.is_ckks:
+            target += SAFETY_BITS
+            k = self.k
+            while k > 1 and self.ctx.log2_q(k - 1) >= target:
+                k -= 1
+            return k
         target -= SAFETY_BITS
         k = self.k
         while k > 1 and self.ctx.log2_q(k) > target:
@@ -167,7 +210,8 @@ class Ctxt:
     # ------------------------------------------------------------- addition
     def _match_factors(self, other: "Ctxt"):
         """Equalize intFactor by scaling self (reference addCtxt)."""
-        if self.ptxt_space <= 2 or self.intFactor == other.intFactor:
+        if (self.is_ckks or self.ptxt_space <= 2
+                or self.intFactor == other.intFactor):
             return
         pr = self.ptxt_space
         lam = balanced_int(other.intFactor * inv_mod(self.intFactor, pr), pr)
@@ -185,7 +229,9 @@ class Ctxt:
             a.mod_down_to(tk, tsp)
         if (b.k, b.special) != (tk, tsp):
             b.mod_down_to(tk, tsp)
-        if a.ptxt_space != b.ptxt_space:
+        if a.is_ckks:
+            _align_ckks_factors(a, b)
+        elif a.ptxt_space != b.ptxt_space:
             g = math.gcd(a.ptxt_space, b.ptxt_space)
             a.ptxt_space = b.ptxt_space = g
         a._match_factors(b)
@@ -224,6 +270,17 @@ class Ctxt:
                     raise LogicError("incompatible part handles in tensor")
                 add_part(h, rt_mul(ctx, d1, d2, k, sp))
         intF = 1
+        if self.is_ckks:
+            f1, f2 = Fraction(self.ratFactor), Fraction(other.ratFactor)
+            m1, m2 = self.ptxtMag, other.ptxtMag
+            noise = log2_sum([
+                self.noise + math.log2(m2) + frac_log2(f2) if m2 > 0
+                else NEG_INF,
+                other.noise + math.log2(m1) + frac_log2(f1) if m1 > 0
+                else NEG_INF,
+                self.noise + other.noise])
+            return Ctxt(ctx, self.pubkey, out_parts, k, sp, 1, noise, 1,
+                        f1 * f2, m1 * m2)
         if pr > 2:
             Q = 1
             for q in ctx.primes_of(k, sp):
@@ -234,11 +291,16 @@ class Ctxt:
                     self.noise + other.noise, intF)
 
     def mul_low_level(self, other: "Ctxt") -> "Ctxt":
-        """multLowLvl: bring both to the lower natural level, tensor."""
+        """multLowLvl: equalize the prime sets near the natural level and
+        tensor.  BGV takes the lower of the two natural levels; CKKS the
+        higher, clamped to what both operands still have."""
         a, b = self.copy(), other.copy()
         a.drop_special_primes()
         b.drop_special_primes()
-        tk = min(a.natural_k(), b.natural_k())
+        if self.is_ckks:
+            tk = min(a.k, b.k, max(a.natural_k(), b.natural_k()))
+        else:
+            tk = min(a.natural_k(), b.natural_k())
         a.bring_to_k(tk)
         b.bring_to_k(tk)
         return a.tensor(b)
@@ -248,6 +310,9 @@ class Ctxt:
         out = self.mul_low_level(other)
         out.relinearize(key)
         return out
+
+    def square(self, key) -> "Ctxt":
+        return self.multiply(self, key)
 
     # ------------------------------------------------------- key switching
     def relinearize(self, key, to_key: int = 0):
@@ -286,4 +351,29 @@ class Ctxt:
                     once=True)
         stats_update("KS-noise-ratio", 2.0 ** min(ks_noise - new_noise, 64.0))
         self.noise = log2_add(new_noise, ks_noise)
+        if self.is_ckks:
+            self.ratFactor = Fraction(self.ratFactor) * ctx.prod_special()
         return self
+
+
+def _align_ckks_factors(a: Ctxt, b: Ctxt):
+    """Equalize CKKS scales before addition: scale the smaller-scale
+    ciphertext by the nearest integer ratio and charge the residual
+    mismatch to its noise."""
+    fa, fb = Fraction(a.ratFactor), Fraction(b.ratFactor)
+    if fa == fb:
+        return
+    if fa < fb:
+        _align_ckks_factors(b, a)
+        return
+    n = int(fa / fb + Fraction(1, 2))
+    if n > 1:
+        b.parts = [(h, rt_mul_scalar(b.ctx, d, n, b.k, b.special))
+                   for h, d in b.parts]
+        b.noise += math.log2(n)
+        fb = fb * n
+    gap = abs(fa - fb)
+    if gap > 0 and b.ptxtMag > 0:
+        b.noise = log2_add(b.noise, math.log2(b.ptxtMag) + frac_log2(gap))
+    b.ratFactor = fa
+    a.ratFactor = fa

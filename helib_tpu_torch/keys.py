@@ -10,7 +10,8 @@ only the ring arithmetic runs on `ctx.device`.
   * PubKey: an encryption of zero (c0, c1) = (-a*s + p*e, a) plus the hybrid
     key-switching matrices: column j of W[s'->s] is
         b_j = -a_j*s + p*e_j + P*B_j*s',   a_j uniform,
-    with P = prod(special primes), B_j = prod of full digit products < j.
+    with P = prod(special primes), B_j = prod of full digit products < j,
+    and p = 1 under CKKS.
 """
 
 from __future__ import annotations
@@ -149,7 +150,7 @@ class SecKey:
         if key in self.matrices:
             return self.matrices[key]
         ctx = self.ctx
-        p = ptxt_space or ctx.ptxt_space
+        p = 1 if ctx.scheme == "ckks" else (ptxt_space or ctx.ptxt_space)
         # fromKey = s_{keyID}^powS(X^powX) on all rows
         fk = self.key_full(from_handle.keyID)
         if from_handle.powX != 1:
@@ -198,6 +199,11 @@ class SecKey:
             acc = term if acc is None else rt_add(ctx, acc, term, k, special)
         return to_host(ctx.inv_ntt(acc, rows)), rows
 
+    def decrypt_raw(self, ctxt) -> np.ndarray:
+        """<c, s-monomials> -> balanced integer coefficient vector (host)."""
+        coeff_res, rows = self._inner_product_residues(ctxt)
+        return dcrt.crt_reconstruct(self.ctx, coeff_res, rows, balanced=True)
+
     def decrypt_bgv(self, ctxt) -> np.ndarray:
         """Full BGV decrypt -> plaintext poly coeffs mod the ciphertext's
         plaintext space, degree < phi(m)."""
@@ -244,7 +250,8 @@ class PubKey:
         self.ctx = ctx = sk.ctx
         sk.pubkey = self
         self.matrices = sk.matrices
-        b, a, noise = sk._rlwe_all_rows(ctx.ptxt_space)
+        b, a, noise = sk._rlwe_all_rows(
+            ctx.ptxt_space if ctx.scheme == "bgv" else 1)
         self.enc_key = [(SKHandle(0, 1, 0), b[:ctx.L]),
                         (SKHandle(1, 1, 0), a[:ctx.L])]
         self.enc_noise = noise

@@ -1,10 +1,12 @@
 """Build and load the port's CUDA sources (ops/csrc/*.cu).
 
 Each source is compiled by `nvcc` for sm_90a into a shared library with a
-plain C interface, loaded with ctypes.  The library lands in `build/torch_ext/`
-at the repository root (git-ignored), named by a hash of its source and
-flags, so a changed source rebuilds and an unchanged one is reused.  Nothing
-is compiled at import time: the first launch builds.
+plain C interface, loaded with ctypes.  The library lands in
+`build/torch_ext/` at the repository root (git-ignored), named by a hash of
+its source, the shared headers (csrc/*.cuh) and the flags, so a changed
+source or header rebuilds and an unchanged one is reused.  Nothing is
+compiled at import time: the first launch builds.  `check_tensors` and
+`launch` are the ctypes side that every kernel wrapper shares.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ import os
 import shutil
 import subprocess
 import threading
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_ext")
@@ -39,9 +43,14 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> tuple[str, str]:
+    """(source, library path); the name hashes the source, every shared
+    header of csrc/ and the flags, so a changed header rebuilds too."""
     src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + [os.path.join(CSRC, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     so = f"lib{name}_{digest.hexdigest()[:12]}.so"
     return src, os.path.join(BUILD_DIR, so)
 
@@ -79,9 +88,44 @@ def build(*names: str) -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ops/csrc/<name>.cu, built on first use."""
+    """The loaded library of ops/csrc/<name>.cu, built on first use, with
+    the return types of its helib_<name>_launch and helib_cuda_error_string
+    set."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = _libs[name] = ctypes.CDLL(build(name)[name])
+            lib = ctypes.CDLL(build(name)[name])
+            getattr(lib, f"helib_{name}_launch").restype = ctypes.c_int
+            lib.helib_cuda_error_string.restype = ctypes.c_char_p
+            lib.helib_cuda_error_string.argtypes = [ctypes.c_int]
+            _libs[name] = lib
         return lib
+
+
+def check_tensors(kernel: str, device, specs) -> None:
+    """Raises ValueError unless every (name, tensor, shape) of `specs` is a
+    contiguous int32 CUDA tensor of that shape on `device`."""
+    for name, t, shape in specs:
+        if (not t.is_cuda or t.device != device or t.dtype != torch.int32
+                or not t.is_contiguous() or tuple(t.shape) != tuple(shape)):
+            raise ValueError(f"{kernel} kernel: {name} must be a contiguous "
+                             f"int32 CUDA tensor of shape {tuple(shape)} on "
+                             f"{device}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+
+
+def launch(name: str, device, *args) -> None:
+    """Calls helib_<name>_launch of ops/csrc/<name>.cu with `args` and the
+    current stream of `device`: a tensor is passed as its device pointer,
+    anything else as the ctypes scalar it is.  Raises RuntimeError on a CUDA
+    error."""
+    lib = load(name)
+    cargs = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
+             else a for a in args]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, f"helib_{name}_launch")(
+            *cargs, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           + lib.helib_cuda_error_string(err).decode())

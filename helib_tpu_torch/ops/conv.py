@@ -21,6 +21,7 @@ import ctypes
 
 import torch
 
+from ._build import check_tensors, launch
 from .modops import mul_mod_shoup
 from .ntt import ntt_pow2_fwd, ntt_pow2_inv
 
@@ -36,24 +37,6 @@ def conv_plain(x, aux, khat, khat_sh):
     return ntt_pow2_inv(Pr, aux)
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _lib():
-    from ._build import load
-    lib = load("conv")
-    if not getattr(lib, "_typed", False):
-        lib.helib_conv_launch.restype = ctypes.c_int
-        lib.helib_conv_launch.argtypes = (
-            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-             ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 8)
-        lib.helib_cuda_error_string.restype = ctypes.c_char_p
-        lib.helib_cuda_error_string.argtypes = [ctypes.c_int]
-        lib._typed = True
-    return lib
-
-
 def conv_cuda(x, aux, khat, khat_sh):
     """The CUDA kernel on x [..., 3, P, n] (int32, contiguous, on the GPU)."""
     n = x.shape[-1]
@@ -67,27 +50,15 @@ def conv_cuda(x, aux, khat, khat_sh):
                          f"[2^{MIN_LOG_N}, 2^{MAX_LOG_N}]")
     tabs = [aux["tw_all"], aux["tw_all_sh"], aux["itw_all"],
             aux["itw_all_sh"]]
-    for name, t, shape in ([("x", x, tuple(x.shape)),
-                            ("khat", khat, (3, P, n)),
-                            ("khat_sh", khat_sh, (3, P, n)),
-                            ("aux q", aux["q"], (3, 1, 1))]
-                           + [("table", t, (3, n)) for t in tabs]):
-        if (not t.is_cuda or t.device != x.device or t.dtype != torch.int32
-                or not t.is_contiguous() or tuple(t.shape) != shape):
-            raise ValueError(f"conv kernel: {name} must be a contiguous int32 "
-                             f"CUDA tensor of shape {shape} on {x.device}, "
-                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    check_tensors("conv", x.device,
+                  [("x", x, x.shape), ("khat", khat, (3, P, n)),
+                   ("khat_sh", khat_sh, (3, P, n)),
+                   ("aux q", aux["q"], (3, 1, 1))]
+                  + [("table", t, (3, n)) for t in tabs])
     out = torch.empty_like(x)
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.helib_conv_launch(
-            _ptr(x), _ptr(out), x.numel() // n, log_n, P,
-            *[_ptr(t) for t in tabs], _ptr(khat), _ptr(khat_sh),
-            _ptr(aux["q"]), ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError("conv kernel launch failed: "
-                           + lib.helib_cuda_error_string(err).decode())
+    launch("conv", x.device, x, out, ctypes.c_longlong(x.numel() // n),
+           ctypes.c_int(log_n), ctypes.c_int(P), *tabs, khat, khat_sh,
+           aux["q"])
     conv_cuda.launches += 1
     return out
 

@@ -32,30 +32,14 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
+using helib::mul_shoup;
+using helib::ntt_stages;
+
 constexpr int kThreads = 512;
-
-__device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b,
-                                            uint32_t q) {
-  const uint32_t r = a + b;  // a, b < q < 2^30: no wrap
-  return r >= q ? r - q : r;
-}
-
-__device__ __forceinline__ uint32_t sub_mod(uint32_t a, uint32_t b,
-                                            uint32_t q) {
-  const uint32_t r = a + q - b;
-  return r >= q ? r - q : r;
-}
-
-// a * w mod q with the Shoup companion wsh = floor(w 2^32 / q); for any
-// 32-bit a the wrapped difference lies in [0, 2q).
-__device__ __forceinline__ uint32_t mul_shoup(uint32_t a, uint32_t w,
-                                              uint32_t wsh, uint32_t q) {
-  const uint32_t hi = __umulhi(a, wsh);
-  const uint32_t r = a * w - hi * q;
-  return r >= q ? r - q : r;
-}
 
 __global__ void __launch_bounds__(kThreads)
 conv_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
@@ -68,7 +52,6 @@ conv_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
             const uint32_t* __restrict__ aux_q) {
   extern __shared__ uint32_t s[];
   const int n = 1 << log_n;
-  const int n_half = n >> 1;
   const size_t row = blockIdx.x;
   const int krow = static_cast<int>(row % (3 * static_cast<size_t>(P)));
   const int t = krow / P;
@@ -85,43 +68,13 @@ conv_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
   for (int j = threadIdx.x; j < n; j += blockDim.x) s[j] = xr[j];
   __syncthreads();
 
-  // forward: stage st has 2^st blocks of 2 * half words
-  for (int st = 0; st < log_n; ++st) {
-    const int log_half = log_n - 1 - st;
-    const int half = 1 << log_half;
-    const int base = 1 << st;
-    for (int b = threadIdx.x; b < n_half; b += blockDim.x) {
-      const int i = b >> log_half;
-      const int j0 = (i << (log_half + 1)) | (b & (half - 1));
-      const int j1 = j0 + half;
-      const uint32_t u = s[j0];
-      const uint32_t wv = mul_shoup(s[j1], w_f[base + i], wsh_f[base + i], q);
-      s[j0] = add_mod(u, wv, q);
-      s[j1] = sub_mod(u, wv, q);
-    }
-    __syncthreads();
-  }
+  ntt_stages<false>(s, log_n, w_f, wsh_f, q);
 
   for (int j = threadIdx.x; j < n; j += blockDim.x)
     s[j] = mul_shoup(s[j], kh[j], khsh[j], q);
   __syncthreads();
 
-  // inverse: the same pairs in reverse stage order
-  for (int st = log_n - 1; st >= 0; --st) {
-    const int log_half = log_n - 1 - st;
-    const int half = 1 << log_half;
-    const int base = 1 << st;
-    for (int b = threadIdx.x; b < n_half; b += blockDim.x) {
-      const int i = b >> log_half;
-      const int j0 = (i << (log_half + 1)) | (b & (half - 1));
-      const int j1 = j0 + half;
-      const uint32_t a = s[j0];
-      const uint32_t c = s[j1];
-      s[j0] = add_mod(a, c, q);
-      s[j1] = mul_shoup(sub_mod(a, c, q), w_i[base + i], wsh_i[base + i], q);
-    }
-    __syncthreads();
-  }
+  ntt_stages<true>(s, log_n, w_i, wsh_i, q);
 
   const uint32_t ninv = w_i[0];
   const uint32_t ninv_sh = wsh_i[0];
@@ -154,10 +107,6 @@ int helib_conv_launch(const void* x, void* out, long long rows, int log_n,
       static_cast<const uint32_t*>(khat_sh),
       static_cast<const uint32_t*>(aux_q));
   return static_cast<int>(cudaGetLastError());
-}
-
-const char* helib_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

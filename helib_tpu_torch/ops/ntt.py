@@ -132,21 +132,28 @@ class Pow2NTT:
                              dtype=np.uint32)[:, None]
         self.ninv_sh = shoup(self.ninv, qs[:, None])
 
-    def flat(self) -> dict:
+    def flat(self, rows=None) -> dict:
         """The stage tables concatenated per prime: [P, n] each, stage s at
-        [2^s, 2^(s+1)); entry 0 is 0 (forward) or n^-1 (inverse)."""
-        zero = np.zeros((len(self.qs), 1), np.uint32)
-        return {"tw_all": np.concatenate([zero] + self.tw, axis=1),
-                "tw_all_sh": np.concatenate([zero] + self.tw_sh, axis=1),
-                "itw_all": np.concatenate([self.ninv] + self.itw, axis=1),
-                "itw_all_sh": np.concatenate([self.ninv_sh] + self.itw_sh,
-                                             axis=1)}
+        [2^s, 2^(s+1)); entry 0 is 0 (forward) or n^-1 (inverse).  `rows`
+        (indices into qs) keeps only those primes."""
+        idx = np.arange(len(self.qs)) if rows is None else np.asarray(rows)
+        zero = np.zeros((len(idx), 1), np.uint32)
+        cat = lambda first, tabs: np.concatenate(
+            [first] + [a[idx] for a in tabs], axis=1)
+        return {"tw_all": cat(zero, self.tw),
+                "tw_all_sh": cat(zero, self.tw_sh),
+                "itw_all": cat(self.ninv[idx], self.itw),
+                "itw_all_sh": cat(self.ninv_sh[idx], self.itw_sh)}
 
-    def tree(self, device, lead: int = 0) -> dict:
-        """Device tables (int32 bit patterns), with `lead` unit axes inserted
-        after the prime axis so the transform broadcasts over extra dims
-        between P and n."""
+    def tree(self, device, lead: int = 0, rows=None) -> dict:
+        """Device stage tables (int32 bit patterns), [P, 2^s] for stage s,
+        with `lead` unit axes inserted after the prime axis so the transform
+        broadcasts over extra dims between P and n.  `rows` (indices into
+        qs) keeps only those primes."""
+        idx = np.arange(len(self.qs)) if rows is None else np.asarray(rows)
+
         def dev(a):
+            a = a[idx]
             return to_device(a.reshape(a.shape[0], *([1] * lead),
                                        *a.shape[1:]), device)
 

@@ -1,0 +1,73 @@
+"""Fused negacyclic power-of-2 NTT over the RNS rows of a ring element.
+
+Port of helib_tpu/ops/pallas_ntt.py::pallas_ntt (K2, kernel `_ntt_kernel`,
+wrapper `apply_ntt`): for each row of x [..., P, n] the forward transform
+(coefficients -> evaluations in `eval_exponents` order) or the inverse
+(n^-1 included) mod the row's prime, fully reduced.  Two versions of one
+function:
+
+  * `ntt_cuda`  -- the hand-written CUDA kernel (csrc/ntt.cu), one CTA per
+                   row with the row in shared memory, reading the flat
+                   [P, n] tables of Pow2NTT.flat();
+  * `ntt_plain` -- the staged torch transforms ntt_pow2_fwd / ntt_pow2_inv
+                   (helib_tpu/ops/ntt.py), the reference the kernel is held
+                   to bit for bit, reading the [P, 2^s] stage tables.
+
+`ntt` dispatches on where the tensor lies: a CUDA tensor launches the kernel
+(or raises), a CPU tensor takes the plain version.  There is no fallback from
+one to the other.  Its table dict `t` holds both forms for one prime-row set
+(Context.ntt_tree): the stage tables and `t["flat"]`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ._build import check_tensors, launch
+from .ntt import ntt_pow2_fwd, ntt_pow2_inv
+
+MIN_LOG_N = 3    # the smallest transform the tests use (m = 16)
+MAX_LOG_N = 15   # 2^15 words = 128 KB of shared memory, within one CTA
+
+
+def ntt_plain(x, t, inverse: bool):
+    """x [..., P, n]; t: the stage tables of the P primes (Pow2NTT.tree)."""
+    return ntt_pow2_inv(x, t) if inverse else ntt_pow2_fwd(x, t)
+
+
+def ntt_cuda(x, flat, q, inverse: bool):
+    """The CUDA kernel on x [..., P, n] (int32, contiguous, on the GPU);
+    flat: Pow2NTT.flat() of the P primes as device tensors, q [P, 1]."""
+    n = x.shape[-1]
+    log_n = n.bit_length() - 1
+    if x.dim() < 2:
+        raise ValueError(f"ntt kernel: x must be [..., P, n], got "
+                         f"{tuple(x.shape)}")
+    P = x.shape[-2]
+    if n != 1 << log_n or not MIN_LOG_N <= log_n <= MAX_LOG_N:
+        raise ValueError(f"ntt kernel: n={n} is not a power of two in "
+                         f"[2^{MIN_LOG_N}, 2^{MAX_LOG_N}]")
+    keys = ("itw_all", "itw_all_sh") if inverse else ("tw_all", "tw_all_sh")
+    tabs = [flat[k] for k in keys]
+    check_tensors("ntt", x.device,
+                  [("x", x, x.shape), ("q", q, (P, 1))]
+                  + [(k, t, (P, n)) for k, t in zip(keys, tabs)])
+    out = torch.empty_like(x)
+    launch("ntt", x.device, x, out, ctypes.c_longlong(x.numel() // n),
+           ctypes.c_int(log_n), ctypes.c_int(P), *tabs, q,
+           ctypes.c_int(int(inverse)))
+    ntt_cuda.launches += 1
+    return out
+
+
+ntt_cuda.launches = 0
+
+
+def ntt(x, t, inverse: bool):
+    """The transform on x's device: the CUDA kernel for a CUDA tensor, the
+    plain torch version for a CPU tensor."""
+    if x.is_cuda:
+        return ntt_cuda(x.contiguous(), t["flat"], t["q"], inverse)
+    return ntt_plain(x, t, inverse)

@@ -1,6 +1,6 @@
 """Ciphertext pipelines (helib_tpu.pipeline).
 
-The hot sequence of every BGV circuit -- tensor product, digit
+The hot sequence of every BGV/CKKS circuit -- tensor product, digit
 decomposition, key-switch MAC, mod-down -- as one callable on part tensors.
 PyTorch runs it eagerly; batching is the leading dims that every ring op
 broadcasts over, so the batched pipeline is the same function on
@@ -25,9 +25,11 @@ def mult_relin(ctx: Context, pk: PubKey, key, noise: float, k: int,
     (given as their part tensors), special primes dropped.  The mod-switch
     noise is not measured (no host round trip), as in helib_tpu's traced
     pipeline, so the result's noise equals the jitted reference's."""
+    pr = ctx.ptxt_space if ctx.scheme == "bgv" else 1
+
     def mk(a, b):
         return Ctxt(ctx, pk, [(SKHandle(0, 1, 0), a), (SKHandle(1, 1, 0), b)],
-                    k, False, ctx.ptxt_space, noise, 1)
+                    k, False, pr, noise, 1)
     out = mk(c0_0, c0_1).tensor(mk(c1_0, c1_1))
     out.relinearize(key)
     out.drop_special_primes(measure=False)
@@ -69,10 +71,13 @@ def make_batched_mult_relin(ctx: Context, sk: SecKey, batch: int,
 
 
 def fresh_noise(ctx: Context, pk) -> float:
-    """Noise bound of a fresh public-key encryption."""
-    pr = ctx.ptxt_space
+    """Noise bound of a fresh public-key encryption (BGV adds the
+    plaintext's mod-p^r term)."""
+    pr = ctx.ptxt_space if ctx.scheme == "bgv" else 1
     noise = ctx.noise_small(0.5) + pk.enc_noise
     e_b = math.log2(max(pr, 1)) + ctx.noise_gaussian()
     noise = log2_add(noise, e_b)
     noise = log2_add(noise, e_b + pk.sk_bound)
-    return log2_add(noise, ctx.noise_mod(pr))
+    if ctx.scheme == "bgv":
+        noise = log2_add(noise, ctx.noise_mod(pr))
+    return noise

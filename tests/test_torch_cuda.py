@@ -1,5 +1,5 @@
-"""The port's CUDA kernels and its main path on the card, against the plain
-torch versions.
+"""The port's CUDA kernels (K1 conv, K2 ntt) and its BGV and CKKS paths on
+the card, against the plain torch versions and the port on the CPU.
 
 Every test needs an NVIDIA GPU and skips without one.  The file imports no
 JAX, so it also runs where only PyTorch is installed (the conftest, which
@@ -17,6 +17,8 @@ from helib_tpu_torch.context import Context
 from helib_tpu_torch.keys import SecKey
 from helib_tpu_torch.ops import ntt
 from helib_tpu_torch.ops.conv import conv, conv_cuda, conv_plain
+from helib_tpu_torch.ops import ntt_fused
+from helib_tpu_torch.nt.primegen import gen_primes
 from helib_tpu_torch.ops.modops import shoup, to_device
 from helib_tpu_torch.pipeline import make_batched_mult_relin
 
@@ -71,6 +73,54 @@ def test_batched_mult_relin_on_gpu_equals_cpu_port(gpu):
     got = fn(*args)
     torch.cuda.synchronize()
     assert conv_cuda.launches - before == 8
+    want = fn_cpu(*[a.cpu() for a in args])
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g.cpu(), w)
+
+
+def _ntt_args(n, P, seed, dev):
+    qs = np.array(gen_primes(2 * n, P), dtype=np.uint32)
+    tab = ntt.Pow2NTT(qs, n, negacyclic=True)
+    t = {**tab.tree(dev),
+         "flat": {k: to_device(v, dev) for k, v in tab.flat().items()}}
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, qs[:, None].astype(np.int64), (2, P, n))
+    return to_device(x.astype(np.uint32), dev), t
+
+
+@pytest.mark.parametrize("n", [8, 64, 2048, 16384, 32768])
+def test_ntt_kernel_matches_plain_on_gpu(gpu, n):
+    """Both directions, a leading batch dim (row r uses prime r mod P)."""
+    x, t = _ntt_args(n, 5, seed=n, dev=gpu)
+    before = ntt_fused.ntt_cuda.launches
+    fwd = ntt_fused.ntt(x, t, inverse=False)
+    inv = ntt_fused.ntt(fwd, t, inverse=True)
+    torch.cuda.synchronize()
+    assert ntt_fused.ntt_cuda.launches == before + 2
+    assert torch.equal(fwd, ntt_fused.ntt_plain(x, t, inverse=False))
+    assert torch.equal(inv, ntt_fused.ntt_plain(fwd, t, inverse=True))
+    assert torch.equal(inv, x)
+
+
+@pytest.mark.parametrize("n", [48, 4, 65536])
+def test_ntt_kernel_refuses_unsupported_lengths(gpu, n):
+    x = torch.zeros((1, 2, n), dtype=torch.int32, device=gpu)
+    before = ntt_fused.ntt_cuda.launches
+    with pytest.raises(ValueError, match="power of two"):
+        ntt_fused.ntt_cuda(x, {}, None, inverse=False)
+    assert ntt_fused.ntt_cuda.launches == before
+
+
+def test_ckks_batched_mult_relin_on_gpu_equals_cpu_port(gpu):
+    params = dict(m=1024, p=-1, r=35, bits=300, c=3, scheme="ckks")
+    ctx, ctx_cpu = Context(**params), Context(**params, device="cpu")
+    fn, args = make_batched_mult_relin(ctx, SecKey(ctx, seed=2), 2)
+    fn_cpu, _ = make_batched_mult_relin(ctx_cpu, SecKey(ctx_cpu, seed=2), 2)
+    before = (ntt_fused.ntt_cuda.launches, conv_cuda.launches)
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert ntt_fused.ntt_cuda.launches - before[0] == 8
+    assert conv_cuda.launches == before[1]
     want = fn_cpu(*[a.cpu() for a in args])
     for g, w in zip(got, want):
         assert g.is_cuda and torch.equal(g.cpu(), w)

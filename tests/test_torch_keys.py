@@ -103,8 +103,12 @@ def test_encrypt_and_carried_decrypt_both_ways(both):
 
 
 def test_context_defaults_to_cuda_and_checks_m():
-    with pytest.raises(InvalidArgument, match="power-of-2"):
-        TContext(m=64, p=3, device="cpu")
+    # power-of-2 m builds (fused NTT) with helib_tpu's prime chain
+    pow2 = TContext(m=64, p=3, device="cpu")
+    np.testing.assert_array_equal(pow2.all_q, JContext(m=64, p=3).all_q)
+    assert pow2.pal.pow2 and pow2.n_eval == 32
+    with pytest.raises(InvalidArgument, match="scheme"):
+        TContext(m=64, p=3, scheme="bfv", device="cpu")
     if torch.cuda.is_available():
         assert TContext(**PARAMS).device.type == "cuda"
     else:
