@@ -4,10 +4,12 @@
 
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels from ops/csrc (one nvcc per source, started
-     together, sm_90a), timed, with each kernel's registers and spills;
+  2. build the three CUDA kernels from ops/csrc (one nvcc per source,
+     started together, sm_90a), timed, with each kernel's registers and
+     spills;
   3. each kernel against its plain torch version on the card, bit for bit:
-     K1 conv and K2 ntt (both directions), n = 8 .. 32768;
+     K1 conv and K2 ntt (both directions), n = 8 .. 32768, and K3 conv_aux
+     (aux-major), n = 8 .. 65536, the last on 2-CTA clusters;
   4. the BGV path -- batched mult+relin at m=8009, p=2, bits=380, c=3,
      batch 16 -- through K1 (and no K2), held against the same chain with
      the plain convolution and against the port on the host CPU, and an
@@ -21,10 +23,18 @@ Phases, in order; any failure exits non-zero:
   6. timing: ops/s of each path, a profile of one call, and each kernel's
      time per launch on the inputs its path gave it, beside its bound and
      its plain version; on each of those inputs the kernel must equal its
-     plain version bit for bit.
-Each path is driven with the launch counts set to 0 just before it and read
-just after.  The last three lines are the card's name and power limit as
-nvidia-smi prints them, the kernel table as JSON, and
+     plain version bit for bit;
+  7. the per-op BGV family at HElib's bgv_basic "big" size -- m=32003, p=2,
+     bits=5800, c=3, unbatched, as benchmarks/bench_suite.py times it:
+     mult+relin, rotate, encrypt (device sampling), decrypt, add and the
+     ciphertext I/O round trip -- through K3 (and neither K1 nor K2), each
+     with a decrypt oracle; the rotate held against the same op with the
+     plain K3 and, at m=32003 with 1500 bits, against the port on the host
+     CPU; ms per op, setup time, peak memory, a profile of one mult+relin
+     and K3's row.
+Each path and each op is driven with the launch counts set to 0 just before
+it and read just after.  The last three lines are the card's name and power
+limit as nvidia-smi prints them, the kernel table as JSON, and
 {"ok": true, "device": {...}}.  Imports nothing of JAX or helib_tpu.
 """
 
@@ -51,6 +61,12 @@ M, P_PLAIN, BITS, C, BATCH, SEED = 8009, 2, 380, 3, 16, 3
 CKKS = dict(m=65536, p=-1, r=30, bits=440, c=3, scheme="ckks")
 CKKS_SEED = 2
 CKKS_TOL = 1e-2          # decrypted product vs numpy (test_ckks_large.py)
+# HElib's bgv_basic "big" size (benchmarks/bench_suite.py:42-45), unbatched
+BIG = dict(m=32003, p=2, r=1, bits=5800, c=3)
+BIG_SEED = 2
+# the host-CPU rotate check runs at m=32003 with fewer primes: at 5800 bits
+# it took 141 s on the 8 host threads of the H100 machine
+HOST_BITS = 1500
 
 
 def card_line() -> str:
@@ -106,6 +122,27 @@ def check_conv(dev) -> tuple[int, int]:
             err = max(err, e)
             if e != 0 or not torch.equal(got, ref):
                 raise AssertionError(f"conv kernel != plain at n={n} P={P}")
+            rows += got.numel() // n
+    return rows, err
+
+
+def check_conv_aux(dev) -> tuple[int, int]:
+    """K3 vs conv_aux_plain on aux-major [3, 2, P, n], bit for bit; returns
+    (rows compared, max err)."""
+    from helib_tpu_torch.ops.conv import conv_aux_cuda, conv_aux_plain
+    rows, err = 0, 0
+    for n in (8, 64, 2048, 4096, 16384, 32768, 65536):
+        for P in (5, 20):
+            x, aux, kh, khsh = conv_inputs(n, P, (2,), seed=n + P + 1, dev=dev)
+            x = x.movedim(1, 0).contiguous()
+            got = conv_aux_cuda(x, aux, kh, khsh)
+            ref = conv_aux_plain(x, aux, kh, khsh)
+            torch.cuda.synchronize()
+            e = int((got.long() - ref.long()).abs().max())
+            err = max(err, e)
+            if e != 0 or not torch.equal(got, ref):
+                raise AssertionError(f"conv_aux kernel != plain at n={n} "
+                                     f"P={P}")
             rows += got.numel() // n
     return rows, err
 
@@ -209,15 +246,16 @@ def capture(mod, name: str) -> swap:
 
 
 def reset_launches():
-    from helib_tpu_torch.ops.conv import conv_cuda
+    from helib_tpu_torch.ops.conv import conv_cuda, conv_aux_cuda
     from helib_tpu_torch.ops.ntt_fused import ntt_cuda
-    conv_cuda.launches = ntt_cuda.launches = 0
+    conv_cuda.launches = ntt_cuda.launches = conv_aux_cuda.launches = 0
 
 
 def read_launches() -> dict:
-    from helib_tpu_torch.ops.conv import conv_cuda
+    from helib_tpu_torch.ops.conv import conv_cuda, conv_aux_cuda
     from helib_tpu_torch.ops.ntt_fused import ntt_cuda
-    return {"conv": conv_cuda.launches, "ntt": ntt_cuda.launches}
+    return {"conv": conv_cuda.launches, "ntt": ntt_cuda.launches,
+            "conv_aux": conv_aux_cuda.launches}
 
 
 def check_outputs(out, ctx, batch: int, dev):
@@ -252,9 +290,9 @@ def main_path(dev):
     torch.cuda.synchronize()
     launches = read_launches()
     print(f"main path: one batched call launched {launches}")
-    if launches["conv"] == 0 or launches["ntt"] != 0:
+    if launches["conv"] == 0 or launches["ntt"] or launches["conv_aux"]:
         raise AssertionError("BGV path must launch the conv kernel and no "
-                             "ntt kernel")
+                             "other")
     check_outputs(out, ctx, BATCH, dev)
 
     # the same chain on batch element 0 with the plain convolution
@@ -326,9 +364,9 @@ def ckks_path(dev):
     torch.cuda.synchronize()
     launches = read_launches()
     print(f"ckks path: one batched call launched {launches}")
-    if launches["ntt"] == 0 or launches["conv"] != 0:
+    if launches["ntt"] == 0 or launches["conv"] or launches["conv_aux"]:
         raise AssertionError("CKKS path must launch the ntt kernel and no "
-                             "conv kernel")
+                             "other")
     check_outputs(out, ctx, BATCH, dev)
 
     # the same chain on batch element 0 with the plain NTT
@@ -397,6 +435,204 @@ def ckks_path(dev):
 
 
 # ---------------------------------------------------------------------------
+# the per-op BGV family at m=32003 (K3)
+# ---------------------------------------------------------------------------
+
+def host_ms(fn, reps: int) -> float:
+    """Mean host-clock ms of fn() (which ends in a synchronize or on the
+    host) over `reps` runs after one warm-up run."""
+    fn()
+    t0 = time.time()
+    for _ in range(reps):
+        fn()
+    return (time.time() - t0) / reps * 1e3
+
+
+def rotate_on_host(dev):
+    """The rotate at m=32003 and HOST_BITS on the card and through the port
+    on the host CPU, with the card's keys carried over by convert.py (the
+    matrix of X -> X^3 included): bit-identical."""
+    from helib_tpu_torch import convert
+    from helib_tpu_torch.context import Context
+    from helib_tpu_torch.keys import SecKey, PubKey
+    from helib_tpu_torch.ops.modops import to_host
+    from helib_tpu_torch.pipeline import make_automorph_relin
+
+    params = {**BIG, "bits": HOST_BITS}
+    ctx = Context(**params, device=dev)
+    sk = SecKey(ctx, seed=BIG_SEED)
+    pk = PubKey(sk)
+    fn, args = make_automorph_relin(ctx, sk)
+    out = fn(*args)
+    t0 = time.time()
+    ctx_cpu = Context(**params, device="cpu")
+    sk_cpu = convert.seckey_from_arrays(
+        ctx_cpu, [{"coeffs": s["coeffs"], "bound": s["bound"],
+                   "full": to_host(s["full"])} for s in sk.skeys],
+        {key: convert.ksmatrix_arrays(W) for key, W in sk.matrices.items()})
+    sk_cpu.pubkey = convert.pubkey_from_arrays(
+        ctx_cpu, [((h.powS, h.powX, h.keyID), to_host(d))
+                  for h, d in pk.enc_key], pk.enc_noise, pk.sk_bound,
+        sk_cpu.matrices)
+    fn_cpu, _ = make_automorph_relin(ctx_cpu, sk_cpu)
+    t1 = time.time()
+    host = fn_cpu(*[a.cpu() for a in args])
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(out, host)):
+        raise AssertionError("perop rotate: GPU != CPU port")
+    print(f"perop: rotate bit-identical to the port on the host CPU at "
+          f"m={ctx.m}, bits={ctx.bits}, L={ctx.L}, S={ctx.S} (setup "
+          f"{t1 - t0:.1f} s, rotate {time.time() - t1:.1f} s on "
+          f"{torch.get_num_threads()} threads)")
+
+
+def perop_path(dev, card: str) -> dict:
+    """Drives each op once with the counts reset before it and read after,
+    checks it by decryption, holds the rotate against the plain K3 and the
+    host CPU, then times every op and K3."""
+    from helib_tpu_torch import io as tio
+    from helib_tpu_torch.context import Context
+    from helib_tpu_torch.ctxt import Ctxt
+    from helib_tpu_torch.dcrt import rt_add, small_coeffs_to_rt
+    from helib_tpu_torch.keys import SecKey, PubKey, SKHandle, reduce_mod_phim
+    from helib_tpu_torch.ops import conv as convmod
+    from helib_tpu_torch.nt import native
+    from helib_tpu_torch.pipeline import (make_mult_relin,
+                                          make_automorph_relin, make_encrypt)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    ctx = Context(**BIG, device=dev)
+    sk = SecKey(ctx, seed=BIG_SEED)
+    pk = PubKey(sk)
+    mfn, margs = make_mult_relin(ctx, sk)
+    rfn, _ = make_automorph_relin(ctx, sk)
+    efn = make_encrypt(ctx, pk)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    # make_automorph_relin's exponent: the first hypercube generator, or 3
+    # where there is none (p = 2 generates (Z/32003Z)*: one slot, no gens)
+    L, kexp = ctx.L, (ctx.pal.gens[0] if ctx.pal.gens else 3)
+    print(f"perop: {ctx!r}; setup {setup_s:.1f} s; rotate by {kexp}")
+
+    counts = {}
+
+    def run(name, f, k3: bool):
+        reset_launches()
+        out = f()
+        torch.cuda.synchronize()
+        counts[name] = c = read_launches()
+        if c["conv"] or c["ntt"] or (c["conv_aux"] > 0) != k3:
+            raise AssertionError(f"perop {name}: launched {c}")
+        return out
+
+    def ctxt(parts, k, special):
+        return Ctxt(ctx, pk, [(SKHandle(0, 1, 0), parts[0]),
+                              (SKHandle(1, 1, 0), parts[1])],
+                    k, special, 2, 0.0, 1)
+
+    def check(name, got, want):
+        if not np.array_equal(got, reduce_mod_phim(want % 2, ctx, 2)):
+            raise AssertionError(f"perop {name}: decrypt oracle failed")
+        print(f"perop: {name} decrypt oracle passed")
+
+    rng = np.random.default_rng(BIG_SEED + 1)
+    pts = [rng.integers(0, 2, ctx.phi_m) for _ in range(2)]
+    cts = [pk.encrypt_bgv(pt, rng) for pt in pts]
+    parts = [[d for _, d in ct.parts] for ct in cts]
+
+    out = run("mult", lambda: mfn(*parts[0], *parts[1]), True)
+    check("mult", sk.decrypt_bgv(ctxt(out, L, False)),
+          np.convolve(pts[0], pts[1]))
+
+    rot = run("rotate", lambda: rfn(*parts[0]), True)
+    moved = np.zeros(ctx.m, dtype=np.int64)
+    np.add.at(moved, (np.arange(ctx.phi_m) * kexp) % ctx.m, pts[0])
+    check("rotate", sk.decrypt_bgv(ctxt(rot, L, False)), moved)
+    eager = cts[0].copy().smart_automorph(kexp, sk)
+    check("rotate (smart_automorph)", sk.decrypt_bgv(eager), moved)
+    eager.drop_special_primes()
+    eparts = dict((h.powS, d) for h, d in eager.parts)
+    if not all(torch.equal(rot[i], eparts[i]) for i in (0, 1)):
+        raise AssertionError("perop rotate: fn != smart_automorph")
+
+    pt_eval = small_coeffs_to_rt(ctx, pts[0], L, False)
+    gen = torch.Generator(device=dev)
+    enc = run("encrypt", lambda: efn(gen.manual_seed(BIG_SEED), pt_eval),
+              True)
+    check("encrypt", sk.decrypt_bgv(ctxt(enc, L, False)), pts[0])
+
+    dec = run("decrypt", lambda: sk.decrypt_bgv(cts[1]), True)
+    check("decrypt", dec, pts[1])
+
+    total = run("add", lambda: cts[0].copy().add(cts[1]), False)
+    check("add", sk.decrypt_bgv(total), pts[0] + pts[1])
+
+    def roundtrip():
+        blob = tio.to_bytes(tio.write_ctxt, cts[0])
+        return blob, tio.from_bytes(tio.read_ctxt, blob, ctx, pk)
+    blob, back = run("io", roundtrip, False)
+    if not all(torch.equal(a, b) for (_, a), (_, b) in
+               zip(back.parts, cts[0].parts)):
+        raise AssertionError("perop io: residues changed in the round trip")
+    check("io", sk.decrypt_bgv(back), pts[0])
+    print(f"perop: launches per op {json.dumps(counts)}")
+
+    # the rotate with the plain K3, and on the host CPU (keys carried over)
+    with swap(convmod, "conv_aux", convmod.conv_aux_plain):
+        reset_launches()
+        ref = rfn(*parts[0])
+        torch.cuda.synchronize()
+        if any(read_launches().values()):
+            raise AssertionError("reference run launched a kernel")
+    if not all(torch.equal(a, b) for a, b in zip(rot, ref)):
+        raise AssertionError("perop rotate: kernel path != plain path")
+    print("perop: rotate bit-identical to the plain-K3 chain")
+    rotate_on_host(dev)
+
+    # timings: chained on the device, host clock, ended by a synchronize
+    def chained(f, n):
+        def go():
+            o = f(None)
+            for _ in range(n - 1):
+                o = f(o)
+            torch.cuda.synchronize()
+        return go
+
+    ms = {}
+    ms["mult"] = host_ms(chained(lambda o: mfn(*(o or parts[0]), *parts[1]),
+                                 10), 1) / 10
+    ms["rotate"] = host_ms(chained(lambda o: rfn(*(o or parts[0])), 10),
+                           1) / 10
+    seeds = iter(range(10 ** 6))
+    ms["encrypt"] = host_ms(chained(
+        lambda o: efn(gen.manual_seed(next(seeds)), pt_eval), 10), 1) / 10
+    ms["decrypt"] = host_ms(lambda: sk.decrypt_bgv(cts[1]), 5)
+    # its device part: inner product, inverse transform, copy to the host
+    ms["decrypt_device"] = host_ms(
+        lambda: sk._inner_product_residues(cts[1]), 5)
+    ms["add"] = host_ms(chained(
+        lambda o: rt_add(ctx, parts[0][0] if o is None else o,
+                         parts[1][0], L, False), 200), 1) / 200
+    ms["io"] = host_ms(roundtrip, 5)
+    for name, v in ms.items():
+        print(f"perop: {name} {v:.3f} ms")
+    print(f"perop: host CRT through the native combiner: "
+          f"{native.available()}")
+    profile(mfn, (*parts[0], *parts[1]), "bgv m=32003 mult+relin")
+    row = kernel_row(mfn, (*parts[0], *parts[1]), counts["mult"], "conv_aux")
+    from helib_tpu_torch.ops.conv import conv_aux_max_clusters
+    print(json.dumps({
+        "metric": "torch_cuda_bgv_perop_ms_m32003_b5800",
+        "ms_per_op": ms, "setup_s": setup_s, "io_bytes": len(blob),
+        "launches_per_op": counts,
+        "conv_aux_ms_per_launch": row["ms"],
+        "conv_aux_clusters_resident": conv_aux_max_clusters(dev),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+        "card": card}))
+    return row
+
+
+# ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
 
@@ -451,25 +687,33 @@ def profile(fn, args, label: str, top: int = 10):
         print(f"  {ms:9.3f} ms {count:5d}x  {key[:90]}")
 
 
+def kernel_table() -> dict:
+    """name -> (module, attribute the path calls, source, the TPU kernel it
+    replaces, kernel, plain version, bound)."""
+    from helib_tpu_torch.ops import conv as convmod, ntt_fused
+    conv_bound = lambda x, aux, kh, khsh: conv_bound_ms(x, kh)  # noqa: E731
+    return {
+        "conv": (convmod, "conv", "helib_tpu_torch/ops/csrc/conv.cu",
+                 "helib_tpu/ops/pallas_ntt.py:452", convmod.conv_cuda,
+                 convmod.conv_plain, conv_bound),
+        "ntt": (ntt_fused, "ntt", "helib_tpu_torch/ops/csrc/ntt.cu",
+                "helib_tpu/ops/pallas_ntt.py:396",
+                lambda x, t, inv: ntt_fused.ntt_cuda(x.contiguous(),
+                                                     t["flat"], t["q"], inv),
+                ntt_fused.ntt_plain, lambda x, t, inv: ntt_bound_ms(x, inv)),
+        "conv_aux": (convmod, "conv_aux",
+                     "helib_tpu_torch/ops/csrc/conv_aux.cu",
+                     "helib_tpu/ops/pallas_ntt.py:527", convmod.conv_aux_cuda,
+                     convmod.conv_aux_plain, conv_bound),
+    }
+
+
 def kernel_row(fn, args, launches: dict, name: str) -> dict:
     """Times one kernel on the inputs its path gave it: the kernel, its
     plain version and the bound, averaged over the path's launches.  Each
     of those launches is also held to the plain version bit for bit."""
-    from helib_tpu_torch.ops import conv as convmod, ntt_fused
-    if name == "conv":
-        mod, src, replaces = (convmod, "helib_tpu_torch/ops/csrc/conv.cu",
-                              "helib_tpu/ops/pallas_ntt.py:452")
-        kernel = lambda x, aux, kh, khsh: convmod.conv_cuda(x, aux, kh, khsh)
-        plain = convmod.conv_plain
-        bound = lambda x, aux, kh, khsh: conv_bound_ms(x, kh)
-    else:
-        mod, src, replaces = (ntt_fused, "helib_tpu_torch/ops/csrc/ntt.cu",
-                              "helib_tpu/ops/pallas_ntt.py:396")
-        kernel = lambda x, t, inv: ntt_fused.ntt_cuda(x.contiguous(),
-                                                      t["flat"], t["q"], inv)
-        plain = ntt_fused.ntt_plain
-        bound = lambda x, t, inv: ntt_bound_ms(x, inv)
-    with capture(mod, name) as cap:
+    mod, attr, src, replaces, kernel, plain, bound = kernel_table()[name]
+    with capture(mod, attr) as cap:
         fn(*args)
     torch.cuda.synchronize()
     if len(cap.calls) != launches[name]:
@@ -521,10 +765,11 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}")
 
-    t0 = time.time()
-    _build.build("conv", "ntt")
-    print(f"build: conv.cu and ntt.cu in {time.time() - t0:.1f} s")
-    for name in ("conv", "ntt"):
+    start = time.time()
+    _build.build("conv", "ntt", "conv_aux")
+    print(f"build: conv.cu, ntt.cu and conv_aux.cu in "
+          f"{time.time() - start:.1f} s")
+    for name in ("conv", "ntt", "conv_aux"):
         for line in _build.ptxas_log.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
@@ -535,6 +780,10 @@ def main() -> int:
     rows, err = check_ntt(dev)
     print(f"kernels: ntt == ntt_plain bit for bit on {rows} rows "
           f"(n = 8 .. 32768, P = 5 and 20, both directions, "
+          f"max |err| = {err})")
+    rows, err = check_conv_aux(dev)
+    print(f"kernels: conv_aux == conv_aux_plain bit for bit on {rows} rows "
+          f"(n = 8 .. 65536, P = 5 and 20, aux-major with a lead dim, "
           f"max |err| = {err})")
 
     fn, args, launches = main_path(dev)
@@ -550,6 +799,12 @@ def main() -> int:
         fn, args, launches, "ntt",
         "torch_cuda_ckks_mult_relin_ops_per_s_m65536_b440_batch16", "ckks",
         card))
+    del fn, args
+    torch.cuda.empty_cache()
+
+    kernels.append(perop_path(dev, card))
+    print(f"chip_smoke: {time.time() - start:.1f} s of command time after "
+          f"start-up")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,8 @@ helib_tpu's Context, for BGV and CKKS, with the tables on an explicit torch
 constructor raises unless the caller asks for device="cpu".  There is no jit
 cache: PyTorch runs eagerly, so `fwd_ntt`/`inv_ntt` call the transform
 directly -- the fused power-of-2 NTT (ops/ntt_fused.py) for power-of-2 m,
-the Bluestein DFT (ops/ntt.py, its convolution in ops/conv.py) for odd m.
+the Bluestein DFT (ops/ntt.py, its convolution in ops/conv.py) for odd m,
+whose spectral kernels are transformed on the context's device.
 """
 
 from __future__ import annotations
@@ -107,8 +108,10 @@ class Context:
             self.pal.eval_exponents = ntt.eval_exponents
             self.ntt_fwd = self.ntt_inv = ntt
         else:
-            self.ntt_fwd = BluesteinTables(self.all_q, self.m, inverse=False)
-            self.ntt_inv = BluesteinTables(self.all_q, self.m, inverse=True)
+            self.ntt_fwd = BluesteinTables(self.all_q, self.m, False,
+                                           self.device)
+            self.ntt_inv = BluesteinTables(self.all_q, self.m, True,
+                                           self.device)
         self._cache: dict = {}
 
     def cached(self, key, build):

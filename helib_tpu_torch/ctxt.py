@@ -3,8 +3,8 @@
 The noise state machine follows helib_tpu's formulas exactly; magnitudes are
 log2-domain Python floats, the CKKS scale `ratFactor` an exact Fraction.
 Parts are [..., P, N] tensors, so one Ctxt can carry a batch of ciphertexts
-in its leading dims.  Rotations, automorphism key switching and the
-bootstrapping helpers come with later slices.
+in its leading dims.  Constant multiplies, conjugation and the bootstrapping
+helpers come with later slices.
 """
 
 from __future__ import annotations
@@ -17,8 +17,9 @@ import numpy as np
 import torch
 
 from .context import Context, log2_add, log2_sum, NEG_INF
-from .dcrt import (rt_add, rt_mul, rt_mul_scalar, rt_scale_down,
-                   rt_add_special_and_scale, rt_break_into_digits)
+from .dcrt import (rt_add, rt_neg, rt_mul, rt_mul_scalar, rt_automorph,
+                   rt_scale_down, rt_add_special_and_scale,
+                   rt_break_into_digits)
 from .keys import SKHandle, PubKey, KSMatrix, balanced_int, get_ks_matrix
 from .ops.modops import mul_mod, add_mod
 from .nt.numbth import inv_mod
@@ -221,7 +222,7 @@ class Ctxt:
         self.noise += math.log2(max(abs(lam), 1))
         self.intFactor = other.intFactor
 
-    def add(self, other: "Ctxt"):
+    def add(self, other: "Ctxt", sub: bool = False):
         a, b = self, other.copy()
         tk = min(a.k, b.k)
         tsp = a.special and b.special
@@ -236,6 +237,8 @@ class Ctxt:
             a.ptxt_space = b.ptxt_space = g
         a._match_factors(b)
         for h, d in b.parts:
+            if sub:
+                d = rt_neg(a.ctx, d, a.k, a.special)
             i = a._find_part(h)
             if i >= 0:
                 a.parts[i] = (h, rt_add(a.ctx, a.parts[i][1], d, a.k,
@@ -244,6 +247,14 @@ class Ctxt:
                 a.parts.append((h, d))
         a.noise = log2_add(a.noise, b.noise)
         return a
+
+    def sub(self, other: "Ctxt"):
+        return self.add(other, sub=True)
+
+    def negate(self):
+        self.parts = [(h, rt_neg(self.ctx, d, self.k, self.special))
+                      for h, d in self.parts]
+        return self
 
     # -------------------------------------------------------- multiplication
     def tensor(self, other: "Ctxt"):
@@ -354,6 +365,44 @@ class Ctxt:
         if self.is_ckks:
             self.ratFactor = Fraction(self.ratFactor) * ctx.prod_special()
         return self
+
+    # -------------------------------------------------------- automorphism
+    def automorph(self, kexp: int):
+        """X -> X^kexp on every part (reference Ctxt::automorph)."""
+        ctx = self.ctx
+        ordm = 2 * ctx.n_eval if ctx.pal.pow2 else ctx.m
+        kexp %= ordm
+        self.parts = [
+            (h if h.is_one else SKHandle(h.powS, h.powX * kexp % ordm,
+                                         h.keyID), rt_automorph(ctx, d, kexp))
+            for h, d in self.parts]
+        return self
+
+    def smart_automorph(self, kexp: int, key):
+        """automorph + key switch back to (1, s); without an exact matrix
+        the hop chain through the key's matrices (ksstrategy.hop_path) is
+        taken.  `key`: PubKey or SecKey; a SecKey mints a missing matrix."""
+        self.relinearize(key)   # canonical (1, s) form first
+        kexp %= self.ctx.m
+        if kexp == 1:
+            return self
+        from .dryrun import note_automorph
+        note_automorph(kexp)
+        if (1, kexp) not in key.matrices:
+            from .ksstrategy import hop_path
+            path = hop_path(key, kexp)
+            if path:
+                for a in path:
+                    self.automorph(a)
+                    self.relinearize(key)
+                return self
+        self.automorph(kexp)
+        self.relinearize(key)
+        return self
+
+    def frobenius(self, j: int, key):
+        """X -> X^(p^j) (reference Ctxt::frobeniusAutomorph)."""
+        return self.smart_automorph(pow(self.ctx.p, j, self.ctx.m), key)
 
 
 def _align_ckks_factors(a: Ctxt, b: Ctxt):

@@ -18,6 +18,8 @@ lies within ~1e-16 of a rounding boundary.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -119,7 +121,8 @@ def crt_reconstruct(ctx: Context, coeff_residues: np.ndarray, rows: tuple,
 
 
 # ---------------------------------------------------------------------------
-# sampling (host numpy RNG, the same bits as helib_tpu -> device NTT)
+# sampling (host numpy RNG, the same bits as helib_tpu -> device NTT; the
+# encryption samplers `*_rt_dev` draw on the device)
 # ---------------------------------------------------------------------------
 
 def sample_small(ctx: Context, rng: np.random.Generator):
@@ -168,6 +171,34 @@ def sample_uniform_residues(ctx: Context, rng: np.random.Generator,
     return to_device(rng.integers(
         0, qs[:, None].astype(np.int64), (len(qs), ctx.n_eval)
     ).astype(np.uint32), ctx.device)
+
+
+def sample_small_rt_dev(ctx: Context, generator: torch.Generator, k: int,
+                        special: bool):
+    """Device-side sampleSmall from the caller's torch generator: coeffs in
+    {-1, 0, 1} with probabilities 1/4, 1/2, 1/4, lifted to residues and
+    transformed (the encryption hot path; keygen keeps the host RNG).  The
+    bits differ from helib_tpu's jax.random draw, the distribution does
+    not."""
+    q, _ = ctx.dev_q(k, special)
+    u = torch.randint(0, 4, (ctx.n_eval,), generator=generator,
+                      device=ctx.device)
+    res = torch.where(u == 0, q - 1, (u == 1).to(torch.int32))   # [P, N]
+    return ctx.fwd_ntt(res, ctx.rows_of(k, special)), ctx.noise_small(0.5)
+
+
+def sample_gaussian_rt_dev(ctx: Context, generator: torch.Generator, k: int,
+                           special: bool, mult: int = 1):
+    """Device-side rounded Gaussian round(N(0,1) * eff_stdev) * mult from the
+    caller's torch generator, lifted to residues and transformed."""
+    q, _ = ctx.dev_q(k, special)
+    sigma = ctx.eff_stdev()
+    g = torch.round(torch.randn(ctx.n_eval, generator=generator,
+                                device=ctx.device) * sigma
+                    ).to(torch.int64) * mult
+    res = torch.remainder(g, q.to(torch.int64)).to(torch.int32)  # [P, N]
+    return (ctx.fwd_ntt(res, ctx.rows_of(k, special)),
+            math.log2(max(mult, 1)) + ctx.noise_gaussian(sigma))
 
 
 def small_coeffs_to_rt(ctx: Context, coeffs: np.ndarray, k: int,

@@ -20,6 +20,10 @@ class OutOfRangeError(HelibError, IndexError):
     pass
 
 
+class IOError_(HelibError, IOError):
+    pass
+
+
 def assert_true(cond, msg: str, exc=LogicError):
     if not cond:
         raise exc(msg)

@@ -70,6 +70,13 @@ class KSMatrix:
     to_key: int = 0    # target secret
 
 
+def regen_ks_a(ctx: Context, prg_seed: int, ncols: int) -> list:
+    """The uniform a-columns of a KS matrix, redrawn from its PRG seed."""
+    prg = np.random.default_rng(prg_seed)
+    return [sample_uniform_residues(ctx, prg, ctx.L, True)
+            for _ in range(ncols)]
+
+
 def matrix_key(handle: SKHandle, to_key: int = 0):
     if handle.keyID == 0 and to_key == 0:
         return (handle.powS, handle.powX)

@@ -2,27 +2,61 @@
 
 Role of the reference's NTL/GMP bignum layer at the DoubleCRT::toPoly
 boundary (reference src/DoubleCRT.cpp:925-1110): the host CRT combine behind
-decryption.  The library is built with `make -C native`; if the .so is
-missing it is built on first use (needs g++), and if that fails every caller
-takes the pure-Python object-int path.
+decryption.  At first use native/crt_kernels.cpp is compiled into
+build/torch_ext/ (git-ignored, named by a hash of the source and flags):
+with OpenMP where a compiler ($CXX, g++, c++) has it, else serially (its
+pragmas are then ignored).  If no compiler builds it, every caller takes the
+pure-Python object-int path.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
 import os
 import subprocess
 import threading
 
 import numpy as np
 from ..exceptions import assert_true
+from ..ops._build import BUILD_DIR
 
 _HERE = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-_SO = os.path.join(_HERE, "native", "libhelib_native.so")
+_SRC = os.path.join(_HERE, "native", "crt_kernels.cpp")
+_FLAGS = ["-O3", "-march=native", "-fPIC", "-shared", "-std=c++17"]
 _lock = threading.Lock()
 _lib = None
 _tried = False
+
+
+def _build() -> str | None:
+    """The built library's path, compiling it first if needed (one build at
+    a time, any process); None if no compiler builds it."""
+    with open(_SRC, "rb") as f:
+        digest = hashlib.sha1(f.read() + " ".join(_FLAGS).encode())
+    so = os.path.join(BUILD_DIR, f"libhelib_native_{digest.hexdigest()[:12]}"
+                      ".so")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lf:
+        fcntl.flock(lf, fcntl.LOCK_EX)
+        if os.path.exists(so):
+            return so
+        cxxs = dict.fromkeys(c for c in (os.environ.get("CXX"), "g++", "c++")
+                             if c)
+        for extra in (["-fopenmp"], []):
+            for cxx in cxxs:
+                try:
+                    done = subprocess.run(
+                        [cxx, *_FLAGS, *extra, "-o", so + ".tmp", _SRC],
+                        capture_output=True, timeout=300).returncode == 0
+                except (OSError, subprocess.TimeoutExpired):
+                    continue
+                if done:
+                    os.replace(so + ".tmp", so)
+                    return so
+    return None
 
 
 def _load():
@@ -31,21 +65,11 @@ def _load():
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        if not os.path.exists(_SO):
-            # cross-process build lock (pytest-xdist workers race here)
-            try:
-                import fcntl
-                lockpath = os.path.join(_HERE, "native", ".build.lock")
-                with open(lockpath, "w") as lf:
-                    fcntl.flock(lf, fcntl.LOCK_EX)
-                    if not os.path.exists(_SO):
-                        subprocess.run(
-                            ["make", "-C", os.path.join(_HERE, "native")],
-                            check=True, capture_output=True, timeout=300)
-            except Exception:
-                return None
+        so = _build()
+        if so is None:
+            return None
         try:
-            lib = ctypes.CDLL(_SO)
+            lib = ctypes.CDLL(so)
         except OSError:
             return None
         lib.crt_init.restype = ctypes.c_void_p

@@ -1,6 +1,6 @@
-// Code shared by the port's kernels (conv.cu, ntt.cu): fully reduced 32-bit
-// modular arithmetic, the staged radix-2 power-of-2 NTT on a row held in
-// shared memory, and the error-string export of each library.
+// Code shared by the port's kernels (conv.cu, ntt.cu, conv_aux.cu): fully
+// reduced 32-bit modular arithmetic, the staged radix-2 power-of-2 NTT on a
+// row held in shared memory, and the error-string export of each library.
 //
 // Residues are uint32 values below a prime q < 2^30 (int32 bit patterns on
 // the torch side).  Every function returns a value in [0, q), so a kernel
@@ -43,17 +43,24 @@ __device__ __forceinline__ uint32_t mul_shoup(uint32_t a, uint32_t w,
 // pairs in reverse stage order (its n^-1 product is left to the caller).
 // w/wsh are one prime's flat table and its Shoup companions
 // (Pow2NTT.flat()).  Each stage ends in a barrier.
+//
+// A CTA that holds one of 2^first equal parts of a longer row (a cluster,
+// conv_aux.cu) runs that row's stages first .. first + log_n - 1, which stay
+// inside its part: local stage st is global stage first + st, and its local
+// block i is the global block boff * 2^st + i, where boff is the part's
+// index.  first = boff = 0 is the whole row.
 template <bool kInverse>
 __device__ __forceinline__ void ntt_stages(uint32_t* s, int log_n,
                                            const uint32_t* __restrict__ w,
                                            const uint32_t* __restrict__ wsh,
-                                           uint32_t q) {
+                                           uint32_t q, int first = 0,
+                                           int boff = 0) {
   const int n_half = 1 << (log_n - 1);
   for (int k = 0; k < log_n; ++k) {
     const int st = kInverse ? log_n - 1 - k : k;
     const int log_half = log_n - 1 - st;
     const int half = 1 << log_half;
-    const int base = 1 << st;
+    const int base = (1 << (first + st)) + (boff << st);
     for (int b = threadIdx.x; b < n_half; b += blockDim.x) {
       const int i = b >> log_half;
       const int j0 = (i << (log_half + 1)) | (b & (half - 1));

@@ -29,7 +29,7 @@ import torch.nn.functional as F
 from ..nt.numbth import root_of_unity, inv_mod
 from ..nt.primegen import gen_aux_primes, AUX_POW2
 from .modops import (add_mod, sub_mod, mul_mod_shoup, shoup, reduce_u32,
-                     to_device)
+                     to_device, to_host)
 from ..exceptions import assert_true
 
 
@@ -45,35 +45,6 @@ def power_table(r: int, q: int, length: int) -> np.ndarray:
         step = pow(r, len(pw), q)
         pw = np.concatenate([pw, pw * np.uint64(step) % q64])
     return pw[:length].astype(np.uint32)
-
-
-def _np_barrett(x: np.ndarray, q: np.ndarray, mu: np.ndarray) -> np.ndarray:
-    """x < 2^60 mod q (q in (2^29, 2^30)) without u64 division."""
-    t = ((x >> np.uint64(29)) * mu) >> np.uint64(32)
-    r = x - t * q
-    r = np.where(r >= q, r - q, r)
-    return np.where(r >= q, r - q, r)
-
-
-def ntt_np(x: np.ndarray, stage_tw: list[np.ndarray], qs: np.ndarray):
-    """Host numpy forward NTT (same stage structure as the device path);
-    x [..., P, n], stage_tw[s] [P, 2^s] uint64, qs [P].  Table builds only."""
-    n = x.shape[-1]
-    q = qs[:, None, None].astype(np.uint64)
-    mu = ((np.uint64(1) << np.uint64(61)) // q)
-    x = x.astype(np.uint64)
-    for s, w in enumerate(stage_tw):
-        m = 1 << s
-        half = n // (2 * m)
-        xr = x.reshape(*x.shape[:-1], m, 2, half)
-        u, v = xr[..., 0, :], xr[..., 1, :]
-        wv = _np_barrett(v * w[..., :, None].astype(np.uint64), q, mu)
-        s1 = u + wv
-        s1 = np.where(s1 >= q, s1 - q, s1)
-        s2 = u + q - wv
-        s2 = np.where(s2 >= q, s2 - q, s2)
-        x = np.stack([s1, s2], axis=-2).reshape(*x.shape[:-1], n)
-    return x
 
 
 def _stage_exponents(n: int, e0: int, ord_root: int):
@@ -222,12 +193,28 @@ def aux_ntt(B: int) -> Pow2NTT:
     return _AUX_CACHE[key]
 
 
+def aux_spectra(bb: np.ndarray, B: int, device, chunk: int = 64):
+    """The staged forward NTT of every row of bb [P, B] mod each auxiliary
+    prime, [3, P, B] uint32 on the host; computed on `device` in chunks of
+    `chunk` rows (exact modular arithmetic: the same residues wherever it
+    runs)."""
+    raux = aux_primes().astype(np.uint64)
+    t = aux_ntt(B).tree(device, lead=1)
+    out = np.empty((3, len(bb), B), dtype=np.uint32)
+    for s in range(0, len(bb), chunk):
+        b3 = bb[None, s:s + chunk].astype(np.uint64) % raux[:, None, None]
+        out[:, s:s + chunk] = to_host(ntt_pow2_fwd(to_device(b3, device), t))
+    return out
+
+
 @dataclass
 class BluesteinTables:
-    """Per-(prime set, m) host tables for the full-m DFT mod each q in qs."""
+    """Per-(prime set, m) host tables for the full-m DFT mod each q in qs;
+    `device` is where the spectral kernels khat are transformed."""
     qs: np.ndarray                      # [P]
     m: int
     inverse: bool
+    device: torch.device | str = "cpu"
     B: int = field(init=False)
     host: dict = field(init=False)
 
@@ -240,12 +227,10 @@ class BluesteinTables:
         self.B = B
         P = len(qs)
         raux = aux_primes().astype(np.uint64)
-        nttB = aux_ntt(B)
-        tw64 = [a.astype(np.uint64) for a in nttB.tw]
 
         u_in = np.empty((P, m), dtype=np.uint32)
         u_out = np.empty((P, m), dtype=np.uint32)
-        khat = np.empty((3, P, B), dtype=np.uint32)
+        bb = np.zeros((P, B), dtype=np.uint32)
         inv2 = (m + 1) // 2
         isq = (np.arange(m, dtype=np.int64) ** 2) % m
         for k, q in enumerate(qs):
@@ -265,11 +250,9 @@ class BluesteinTables:
                 u_out[k] = u_in[k]
             # kernel bb[d] = u^{-d^2}, wrapped negative indices
             usq_inv = uipw[isq]
-            bb = np.zeros(B, dtype=np.uint32)
-            bb[:m] = usq_inv
-            bb[B - m + 1:] = usq_inv[1:][::-1]
-            b3 = bb[None, :].astype(np.uint64) % raux[:, None]
-            khat[:, k, :] = ntt_np(b3, tw64, raux).astype(np.uint32)
+            bb[k, :m] = usq_inv
+            bb[k, B - m + 1:] = usq_inv[1:][::-1]
+        khat = aux_spectra(bb, B, self.device)
 
         R = int(raux[0]) * int(raux[1]) * int(raux[2])
         Rt = [R // int(r) for r in raux]
@@ -326,28 +309,47 @@ def aux_tree(B: int, device) -> dict:
             "inv_r_f32": [float(v) for v in inv_r]}
 
 
+ROW_MAJOR_B = 16384   # the m=8009 class keeps K1's row-major layout
+
+
 def bluestein_apply(x, t, m: int, B: int):
     """Full-m DFT (per table direction) of x: [..., P, m] -> [..., P, m].
 
-    The staged, row-major form of helib_tpu's bluestein_apply: lift onto the
-    three auxiliary primes as [..., 3, P, B], convolve each row with its
-    spectral kernel (ops.conv: the CUDA kernel on a GPU), CRT back mod q."""
-    from .conv import conv
+    The staged form of helib_tpu's bluestein_apply: lift onto the three
+    auxiliary primes, convolve each row with its spectral kernel (ops.conv:
+    the CUDA kernels on a GPU), CRT back mod q.  B = 16384 lifts row-major,
+    [..., 3, P, B], for K1; every other B aux-major, [3, ..., P, B], for K3,
+    as helib_tpu's default `_aux_shared` dispatch does.  The CRT tail is the
+    same elementwise arithmetic on either layout, so both give the staged
+    reference's residues bit for bit."""
+    from . import conv as convmod
     q = t["q"]
     a = mul_mod_shoup(x, t["u_in"], t["u_in_sh"], q)           # [..., P, m]
-    a3 = reduce_u32(a.unsqueeze(-3), t["aux_q"])               # [..., 3, P, m]
-    ap = F.pad(a3, (0, B - m))
-    p = conv(ap, t["aux"], t["khat"], t["khat_sh"])            # [..., 3, P, B]
-    y = mul_mod_shoup(p, t["yt_inv"], t["yt_inv_sh"], t["aux_q"])
+    if B == ROW_MAJOR_B:
+        ax, conv, lead = -3, convmod.conv, ()
+        a3 = reduce_u32(a.unsqueeze(-3), t["aux_q"])           # [..., 3, P, m]
+    else:
+        ax, conv, lead = 0, convmod.conv_aux, (1,) * (a.dim() - 2)
+        a3 = reduce_u32(a.unsqueeze(0), t["aux_q"].reshape(
+            (3,) + lead + (1, 1)))                             # [3, ..., P, m]
+
+    def lay(v):
+        """A per-aux-prime table [3, ...] laid out for the lift's axes."""
+        return v.reshape(v.shape[:1] + lead + v.shape[1:])
+
+    p = conv(F.pad(a3, (0, B - m)), t["aux"], t["khat"], t["khat_sh"])
+    aux_q = lay(t["aux_q"])
+    y = mul_mod_shoup(p, lay(t["yt_inv"]), lay(t["yt_inv_sh"]), aux_q)
     # float32 CRT lift floor(sum_t y_t / r_t + 1/4), summed left to right
     yf = y.to(torch.float32)
-    s = yf[..., 0, :, :] * t["inv_r_f32"][0]
-    s = s + yf[..., 1, :, :] * t["inv_r_f32"][1]
-    s = s + yf[..., 2, :, :] * t["inv_r_f32"][2]
+    s = yf.select(ax, 0) * t["inv_r_f32"][0]
+    s = s + yf.select(ax, 1) * t["inv_r_f32"][1]
+    s = s + yf.select(ax, 2) * t["inv_r_f32"][2]
     alpha = torch.floor(s + 0.25).to(torch.int32)              # [..., P, B]
-    terms = mul_mod_shoup(y, t["Rt_mod_q"], t["Rt_mod_q_sh"], q.unsqueeze(0))
-    acc = add_mod(add_mod(terms[..., 0, :, :], terms[..., 1, :, :], q),
-                  terms[..., 2, :, :], q)
+    terms = mul_mod_shoup(y, lay(t["Rt_mod_q"]), lay(t["Rt_mod_q_sh"]),
+                          q.unsqueeze(0))
+    acc = add_mod(add_mod(terms.select(ax, 0), terms.select(ax, 1), q),
+                  terms.select(ax, 2), q)
     corr = mul_mod_shoup(alpha, t["negR"], t["negR_sh"], q)
     V = add_mod(acc, corr, q)[..., :m]
     return mul_mod_shoup(V, t["u_out"], t["u_out_sh"], q)

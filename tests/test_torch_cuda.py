@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (K1 conv, K2 ntt) and its BGV and CKKS paths on
-the card, against the plain torch versions and the port on the CPU.
+"""The port's CUDA kernels (K1 conv, K2 ntt, K3 conv_aux) and its BGV and
+CKKS paths on the card, against the plain torch versions and the port on
+the CPU.
 
 Every test needs an NVIDIA GPU and skips without one.  The file imports no
 JAX, so it also runs where only PyTorch is installed (the conftest, which
@@ -16,11 +17,13 @@ import torch
 from helib_tpu_torch.context import Context
 from helib_tpu_torch.keys import SecKey
 from helib_tpu_torch.ops import ntt
-from helib_tpu_torch.ops.conv import conv, conv_cuda, conv_plain
+from helib_tpu_torch.ops.conv import (conv, conv_cuda, conv_plain, conv_aux,
+                                      conv_aux_cuda, conv_aux_plain)
 from helib_tpu_torch.ops import ntt_fused
 from helib_tpu_torch.nt.primegen import gen_primes
 from helib_tpu_torch.ops.modops import shoup, to_device
-from helib_tpu_torch.pipeline import make_batched_mult_relin
+from helib_tpu_torch.pipeline import (make_batched_mult_relin,
+                                      make_automorph_relin)
 
 torch.set_num_threads(1)
 
@@ -64,15 +67,55 @@ def test_conv_kernel_refuses_unsupported_lengths(gpu, n):
 
 
 def test_batched_mult_relin_on_gpu_equals_cpu_port(gpu):
+    """m=31 (B = 64): its transforms go aux-major through K3, not K1."""
     params = dict(m=31, p=2, r=1, bits=300, c=3)
     ctx, ctx_cpu = Context(**params), Context(**params, device="cpu")
     assert ctx.device.type == "cuda"
     fn, args = make_batched_mult_relin(ctx, SecKey(ctx, seed=3), 2)
     fn_cpu, _ = make_batched_mult_relin(ctx_cpu, SecKey(ctx_cpu, seed=3), 2)
-    before = conv_cuda.launches
+    before = (conv_aux_cuda.launches, conv_cuda.launches)
     got = fn(*args)
     torch.cuda.synchronize()
-    assert conv_cuda.launches - before == 8
+    assert conv_aux_cuda.launches - before[0] == 8
+    assert conv_cuda.launches == before[1]
+    want = fn_cpu(*[a.cpu() for a in args])
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("n", [256, 4096, 32768, 65536])
+def test_conv_aux_kernel_matches_plain_on_gpu(gpu, n):
+    """Aux-major [3, 2, P, n]; n = 65536 runs a 2-CTA cluster per row."""
+    x, aux, kh, khsh = _conv_args(n, 5, seed=n + 1, dev=gpu)
+    x = x.movedim(1, 0).contiguous()
+    before = conv_aux_cuda.launches
+    got = conv_aux(x, aux, kh, khsh)
+    torch.cuda.synchronize()
+    assert conv_aux_cuda.launches == before + 1
+    assert torch.equal(got, conv_aux_plain(x, aux, kh, khsh))
+
+
+@pytest.mark.parametrize("n", [48, 4, 131072])
+def test_conv_aux_kernel_refuses_unsupported_lengths(gpu, n):
+    x = torch.zeros((3, 2, n), dtype=torch.int32, device=gpu)
+    before = conv_aux_cuda.launches
+    with pytest.raises(ValueError, match="power of two"):
+        conv_aux_cuda(x, {}, None, None)
+    assert conv_aux_cuda.launches == before
+
+
+def test_rotate_m1271_on_gpu_equals_cpu_port(gpu):
+    """The per-op rotate at m=1271 (B = 4096, K3) against the port on the
+    host."""
+    params = dict(m=1271, p=2, r=1, bits=120, c=3)
+    ctx, ctx_cpu = Context(**params), Context(**params, device="cpu")
+    fn, args = make_automorph_relin(ctx, SecKey(ctx, seed=4))
+    fn_cpu, _ = make_automorph_relin(ctx_cpu, SecKey(ctx_cpu, seed=4))
+    before = (conv_aux_cuda.launches, conv_cuda.launches)
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert conv_aux_cuda.launches - before[0] == 8
+    assert conv_cuda.launches == before[1]
     want = fn_cpu(*[a.cpu() for a in args])
     for g, w in zip(got, want):
         assert g.is_cuda and torch.equal(g.cpu(), w)
