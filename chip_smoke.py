@@ -4,37 +4,55 @@
 
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi);
-  2. build the three CUDA kernels from ops/csrc (one nvcc per source,
-     started together, sm_90a), timed, with each kernel's registers and
-     spills;
+  2. build the five CUDA sources from ops/csrc (one nvcc per source,
+     started together, sm_90a), timed, with every kernel's registers and
+     spills (K4 and K5 for each composite size k);
   3. each kernel against its plain torch version on the card, bit for bit:
-     K1 conv and K2 ntt (both directions), n = 8 .. 32768, and K3 conv_aux
-     (aux-major), n = 8 .. 65536, the last on 2-CTA clusters;
+     K1 conv and K2 ntt (both directions), n = 8 .. 32768, K3 conv_aux
+     (aux-major), n = 8 .. 65536, the last on 2-CTA clusters, and K4 ntt2
+     and K5 conv2 at every k, n = 8 .. 32768, P = 5 and 20, against their
+     own plain versions and K2's and K1's;
   4. the BGV path -- batched mult+relin at m=8009, p=2, bits=380, c=3,
-     batch 16 -- through K1 (and no K2), held against the same chain with
-     the plain convolution and against the port on the host CPU, and an
-     encrypt -> multiply -> decrypt oracle;
+     batch 16 -- through K1 (and no other kernel), held against the same
+     chain with the plain convolution and against the port on the host CPU,
+     and an encrypt -> multiply -> decrypt oracle;
   5. the CKKS path -- batched mult+relin at m=65536, bits=440, c=3, r=30,
-     batch 16 -- through K2 (and no K1), held against the same chain with
-     the plain NTT and against the port on the host CPU, and an
+     batch 16 -- through K2 (and no other kernel), held against the same
+     chain with the plain NTT and against the port on the host CPU, and an
      encrypt -> multiply -> rescale -> decrypt oracle within
      4 x error_bound() at the default scale 2^30 and within 1e-2 and
      4 x error_bound() at scale 2^40;
-  6. timing: ops/s of each path, a profile of one call, and each kernel's
-     time per launch on the inputs its path gave it, beside its bound and
-     its plain version; on each of those inputs the kernel must equal its
-     plain version bit for bit;
-  7. the per-op BGV family at HElib's bgv_basic "big" size -- m=32003, p=2,
+  6. timing of each path: ops/s, a profile of one call, and each kernel's
+     time per launch on the inputs its path gave it (CUDA events over
+     launches queued behind a sleep kernel), beside its bound and its plain
+     version; on each of those inputs the kernel must equal its plain
+     version bit for bit;
+  7. the v2 schedule (HELIB_NTT_V2=1) on the same two paths and inputs:
+     the BGV path through K5 alone and the CKKS path through K4 alone, each
+     bit-identical to the default run; ops/s, a profile, K5's and K4's rows
+     and each one's time at every k on the path's own inputs, then the
+     default path timed again (default, v2, default in one call);
+  8. the CKKS rotation family at m=65536, bits=440, c=3, r=30, unbatched,
+     encoded at scale 2^40: rotate by 1 and by 5, conjugate, shift by 1, the
+     real and the imaginary part, once through K2 and once through K4,
+     bit-identical, each with a decrypt oracle against numpy within
+     min(1e-2, 4 x error_bound()); ms and launches per op, peak memory;
+  9. the per-op BGV family at HElib's bgv_basic "big" size -- m=32003, p=2,
      bits=5800, c=3, unbatched, as benchmarks/bench_suite.py times it:
      mult+relin, rotate, encrypt (device sampling), decrypt, add and the
-     ciphertext I/O round trip -- through K3 (and neither K1 nor K2), each
+     ciphertext I/O round trip -- through K3 (and no other kernel), each
      with a decrypt oracle; the rotate held against the same op with the
      plain K3 and, at m=32003 with 1500 bits, against the port on the host
      CPU; ms per op, setup time, peak memory, a profile of one mult+relin
-     and K3's row.
-Each path and each op is driven with the launch counts set to 0 just before
-it and read just after.  The last three lines are the card's name and power
-limit as nvidia-smi prints them, the kernel table as JSON, and
+     and K3's row;
+ 10. the cost probes at the TPU probes' shapes: P1's seven variants on 160
+     rows of 16384 words, 50 chained applications, and P2's three phases on
+     160 rows of n = 16384, 100 chained, each held to its plain version bit
+     for bit; us per application and per row beside each bound, and K1's
+     time per row at n = 16384.
+Each path, each op and the probe run is driven with the launch counts set to
+0 just before it and read just after.  The last three lines are the card's
+name and power limit as nvidia-smi prints them, the kernel table as JSON, and
 {"ok": true, "device": {...}}.  Imports nothing of JAX or helib_tpu.
 """
 
@@ -42,6 +60,8 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import re
 import subprocess
 import sys
 import time
@@ -76,12 +96,21 @@ def card_line() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+# ~50 ms of the card's clock: while a sleep kernel holds the device, the host
+# queues the timed launches, so back-to-back launches shorter than their
+# Python launch cost are timed on the device, not at the host's launch rate
+HOLD_CYCLES = 100_000_000
+
+
 def event_ms(fn, reps: int = 10, warm: int = 2) -> float:
-    """Mean device time of fn() over `reps` back-to-back runs."""
+    """Mean device time of fn() over `reps` back-to-back runs, queued
+    behind a sleep kernel."""
     for _ in range(warm):
         fn()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
         enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(HOLD_CYCLES)
     a.record()
     for _ in range(reps):
         fn()
@@ -198,6 +227,58 @@ def check_ntt(dev) -> tuple[int, int]:
     return rows, err
 
 
+V2_SIZES = (8, 64, 2048, 4096, 8192, 16384, 32768)
+
+
+def check_ntt2(dev) -> tuple[int, int]:
+    """K4 vs ntt2_plain and K2's ntt_plain at every k, both directions, bit
+    for bit; returns (rows compared, max err)."""
+    from helib_tpu_torch.ops.ntt2 import K_MAX, ntt2_cuda, ntt2_plain
+    from helib_tpu_torch.ops.ntt_fused import ntt_plain
+    rows, err = 0, 0
+    for n in V2_SIZES:
+        for P in (5, 20):
+            x, t = ntt_inputs(n, P, (2,), seed=n + P + 2, dev=dev)
+            for inverse in (False, True):
+                ref = ntt_plain(x, t, inverse)
+                for k in range(1, K_MAX + 1):
+                    got = ntt2_cuda(x, t["flat"], t["q"], inverse, k)
+                    own = ntt2_plain(x, t["flat"], t["q"], inverse, k)
+                    torch.cuda.synchronize()
+                    e = int((got.long() - ref.long()).abs().max())
+                    err = max(err, e)
+                    if e or not (torch.equal(got, ref)
+                                 and torch.equal(got, own)):
+                        raise AssertionError(f"ntt2 kernel != plain at n={n}"
+                                             f" P={P} k={k} "
+                                             f"inverse={inverse}")
+                    rows += got.numel() // n
+    return rows, err
+
+
+def check_conv2(dev) -> tuple[int, int]:
+    """K5 vs conv2_plain and K1's conv_plain at every k, bit for bit;
+    returns (rows compared, max err)."""
+    from helib_tpu_torch.ops.conv import conv_plain
+    from helib_tpu_torch.ops.ntt2 import K_MAX, conv2_cuda, conv2_plain
+    rows, err = 0, 0
+    for n in V2_SIZES:
+        for P in (5, 20):
+            args = conv_inputs(n, P, (2,), seed=n + P + 3, dev=dev)
+            ref = conv_plain(*args)
+            for k in range(1, K_MAX + 1):
+                got = conv2_cuda(*args, k)
+                own = conv2_plain(*args, k)
+                torch.cuda.synchronize()
+                e = int((got.long() - ref.long()).abs().max())
+                err = max(err, e)
+                if e or not (torch.equal(got, ref) and torch.equal(got, own)):
+                    raise AssertionError(f"conv2 kernel != plain at n={n} "
+                                         f"P={P} k={k}")
+                rows += got.numel() // n
+    return rows, err
+
+
 def ntt_bound_ms(x, inverse: bool) -> tuple[float, float]:
     """(bytes bound, multiplies bound) in ms for one launch: x read and out
     written once, the direction's two flat [P, n] tables and q read once;
@@ -245,17 +326,30 @@ def capture(mod, name: str) -> swap:
     return cm
 
 
+def _launch_counters() -> dict:
+    """name -> the wrapper whose `.launches` counts that kernel."""
+    from helib_tpu_torch.ops import conv, ntt2, ntt_fused, probes
+    return {"conv": conv.conv_cuda, "ntt": ntt_fused.ntt_cuda,
+            "conv_aux": conv.conv_aux_cuda, "ntt2": ntt2.ntt2_cuda,
+            "conv2": ntt2.conv2_cuda, "p1": probes.p1_cuda,
+            "p2": probes.p2_cuda}
+
+
 def reset_launches():
-    from helib_tpu_torch.ops.conv import conv_cuda, conv_aux_cuda
-    from helib_tpu_torch.ops.ntt_fused import ntt_cuda
-    conv_cuda.launches = ntt_cuda.launches = conv_aux_cuda.launches = 0
+    for fn in _launch_counters().values():
+        fn.launches = 0
 
 
 def read_launches() -> dict:
-    from helib_tpu_torch.ops.conv import conv_cuda, conv_aux_cuda
-    from helib_tpu_torch.ops.ntt_fused import ntt_cuda
-    return {"conv": conv_cuda.launches, "ntt": ntt_cuda.launches,
-            "conv_aux": conv_aux_cuda.launches}
+    return {name: fn.launches for name, fn in _launch_counters().items()}
+
+
+def expect_only(launches: dict, name: str, what: str):
+    """Fails unless `name` launched and no other kernel did."""
+    if launches[name] == 0 or any(v for k, v in launches.items()
+                                  if k != name):
+        raise AssertionError(f"{what} must launch {name} and no other "
+                             f"kernel: {launches}")
 
 
 def check_outputs(out, ctx, batch: int, dev):
@@ -290,9 +384,7 @@ def main_path(dev):
     torch.cuda.synchronize()
     launches = read_launches()
     print(f"main path: one batched call launched {launches}")
-    if launches["conv"] == 0 or launches["ntt"] or launches["conv_aux"]:
-        raise AssertionError("BGV path must launch the conv kernel and no "
-                             "other")
+    expect_only(launches, "conv", "BGV path")
     check_outputs(out, ctx, BATCH, dev)
 
     # the same chain on batch element 0 with the plain convolution
@@ -364,9 +456,7 @@ def ckks_path(dev):
     torch.cuda.synchronize()
     launches = read_launches()
     print(f"ckks path: one batched call launched {launches}")
-    if launches["ntt"] == 0 or launches["conv"] or launches["conv_aux"]:
-        raise AssertionError("CKKS path must launch the ntt kernel and no "
-                             "other")
+    expect_only(launches, "ntt", "CKKS path")
     check_outputs(out, ctx, BATCH, dev)
 
     # the same chain on batch element 0 with the plain NTT
@@ -431,7 +521,7 @@ def ckks_path(dev):
               f"{tol:.3e} ({ea.nslots} slots, rescaled to k={prod.k})")
         if not err <= tol:
             raise AssertionError("decrypt oracle: product outside tolerance")
-    return fn, args, launches
+    return fn, args, launches, ctx, sk
 
 
 # ---------------------------------------------------------------------------
@@ -521,7 +611,8 @@ def perop_path(dev, card: str) -> dict:
         out = f()
         torch.cuda.synchronize()
         counts[name] = c = read_launches()
-        if c["conv"] or c["ntt"] or (c["conv_aux"] > 0) != k3:
+        if any(v for key, v in c.items() if key != "conv_aux") or (
+                c["conv_aux"] > 0) != k3:
             raise AssertionError(f"perop {name}: launched {c}")
         return out
 
@@ -690,8 +781,9 @@ def profile(fn, args, label: str, top: int = 10):
 def kernel_table() -> dict:
     """name -> (module, attribute the path calls, source, the TPU kernel it
     replaces, kernel, plain version, bound)."""
-    from helib_tpu_torch.ops import conv as convmod, ntt_fused
+    from helib_tpu_torch.ops import conv as convmod, ntt_fused, ntt2
     conv_bound = lambda x, aux, kh, khsh: conv_bound_ms(x, kh)  # noqa: E731
+    ntt_bound = lambda x, t, inv: ntt_bound_ms(x, inv)  # noqa: E731
     return {
         "conv": (convmod, "conv", "helib_tpu_torch/ops/csrc/conv.cu",
                  "helib_tpu/ops/pallas_ntt.py:452", convmod.conv_cuda,
@@ -700,11 +792,24 @@ def kernel_table() -> dict:
                 "helib_tpu/ops/pallas_ntt.py:396",
                 lambda x, t, inv: ntt_fused.ntt_cuda(x.contiguous(),
                                                      t["flat"], t["q"], inv),
-                ntt_fused.ntt_plain, lambda x, t, inv: ntt_bound_ms(x, inv)),
+                ntt_fused.ntt_plain, ntt_bound),
         "conv_aux": (convmod, "conv_aux",
                      "helib_tpu_torch/ops/csrc/conv_aux.cu",
                      "helib_tpu/ops/pallas_ntt.py:527", convmod.conv_aux_cuda,
                      convmod.conv_aux_plain, conv_bound),
+        # the v2 kernels at the composite size the path ran (ntt_v2())
+        "ntt2": (ntt_fused, "ntt", "helib_tpu_torch/ops/csrc/ntt2.cu",
+                 "helib_tpu/ops/pallas_ntt2.py:211",
+                 lambda x, t, inv: ntt2.ntt2_cuda(
+                     x.contiguous(), t["flat"], t["q"], inv, ntt2.ntt_v2()[1]),
+                 lambda x, t, inv: ntt2.ntt2_plain(
+                     x, t["flat"], t["q"], inv, ntt2.ntt_v2()[1]),
+                 ntt_bound),
+        "conv2": (convmod, "conv", "helib_tpu_torch/ops/csrc/ntt2.cu",
+                  "helib_tpu/ops/pallas_ntt2.py:245",
+                  lambda *a: ntt2.conv2_cuda(*a, ntt2.ntt_v2()[1]),
+                  lambda *a: ntt2.conv2_plain(*a, ntt2.ntt_v2()[1]),
+                  conv_bound),
     }
 
 
@@ -755,6 +860,312 @@ def measure(fn, args, launches, name: str, metric: str, label: str,
     return row
 
 
+# ---------------------------------------------------------------------------
+# the v2 schedule on both batched paths (K4, K5)
+# ---------------------------------------------------------------------------
+
+def set_v2(on: bool):
+    """HELIB_NTT_V2=1 (composites of K_MAX: HELIB_NTT_V2_K unset) or off."""
+    os.environ.pop("HELIB_NTT_V2_K", None)
+    if on:
+        os.environ["HELIB_NTT_V2"] = "1"
+    else:
+        os.environ.pop("HELIB_NTT_V2", None)
+
+
+def per_k_ms(fn, args, name: str, v1: str) -> tuple[dict, float]:
+    """The v2 kernel `name` at every composite size k, and the v1 kernel,
+    each timed on every input the path gives it (mean per launch)."""
+    from helib_tpu_torch.ops import ntt2
+    table = kernel_table()
+    mod, attr = table[name][:2]
+    with capture(mod, attr) as cap:
+        fn(*args)
+    torch.cuda.synchronize()
+    if name == "ntt2":
+        def kern(k, x, t, inv):
+            return ntt2.ntt2_cuda(x.contiguous(), t["flat"], t["q"], inv, k)
+    else:
+        def kern(k, *a):
+            return ntt2.conv2_cuda(*a, k)
+    by_k = {k: sum(event_ms(lambda: kern(k, *a)) for a in cap.calls)
+            / len(cap.calls) for k in range(1, ntt2.K_MAX + 1)}
+    v1_ms = sum(event_ms(lambda: table[v1][4](*a)) for a in cap.calls) \
+        / len(cap.calls)
+    return by_k, v1_ms
+
+
+def v2_path(fn, args, name: str, v1: str, label: str, metric: str,
+            card: str) -> dict:
+    """The path of fn with HELIB_NTT_V2=1 on the same inputs: only `name`
+    launches, the outputs equal the default run's bit for bit; then its
+    timing, profile, kernel row and per-k times, and the default run timed
+    again after it (default, v2, default in one call)."""
+    base = fn(*args)
+    torch.cuda.synchronize()
+    set_v2(True)
+    try:
+        reset_launches()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        print(f"{label} v2: one batched call launched {launches}")
+        expect_only(launches, name, f"{label} path under HELIB_NTT_V2=1")
+        if not all(torch.equal(a, b) for a, b in zip(out, base)):
+            raise AssertionError(f"{label} v2: output != default run")
+        print(f"{label} v2: bit-identical to the default ({v1}) run")
+        row = measure(fn, args, launches, name, metric, f"{label} v2", card)
+        by_k, v1_ms = per_k_ms(fn, args, name, v1)
+        print(json.dumps({"metric": f"torch_cuda_{name}_ms_per_launch_by_k",
+                          "path": label, "ms_by_k": by_k,
+                          f"{v1}_ms_same_inputs": v1_ms, "card": card}))
+    finally:
+        set_v2(False)
+    print(json.dumps({"metric": f"{metric}_default_again", **timing(fn, args),
+                      "card": card}))
+    return row
+
+
+# ---------------------------------------------------------------------------
+# the CKKS rotation family at m=65536 (K2, and K4 under v2)
+# ---------------------------------------------------------------------------
+
+ROT_SCALE_BITS = 40
+
+
+def rotation_path(ctx, sk, card: str):
+    """rotate by 1 and 5, conjugate, shift by 1, real and imaginary part of
+    one ciphertext, once through K2 and once through K4 (bit-identical),
+    each with a decrypt oracle; ms per op on the host clock (ended by a
+    synchronize) and between CUDA events, and launches per op."""
+    from helib_tpu_torch.ckks import EncryptedArrayCKKS
+
+    ea = EncryptedArrayCKKS(ctx)
+    rng = np.random.default_rng(CKKS_SEED + 3)
+    z = rng.uniform(-1, 1, ea.nslots) + 1j * rng.uniform(-1, 1, ea.nslots)
+    ct = ea.encrypt(z, sk.pubkey, rng, scale=1 << ROT_SCALE_BITS)
+
+    def shifted(v):
+        out = np.roll(v, 1)
+        out[0] = 0
+        return out
+
+    ops = {"rotate1": (lambda c: ea.rotate(c.copy(), 1, sk),
+                       lambda v: np.roll(v, 1)),
+           "rotate5": (lambda c: ea.rotate(c.copy(), 5, sk),
+                       lambda v: np.roll(v, 5)),
+           "conjugate": (lambda c: c.copy().conjugate(sk), np.conj),
+           "shift1": (lambda c: ea.shift(c, 1, sk), shifted),
+           "real": (lambda c: ea.extract_real_part(c, sk),
+                    lambda v: np.real(v) + 0j),
+           "imag": (lambda c: ea.extract_imaginary_part(c, sk),
+                    lambda v: np.imag(v) + 0j)}
+    torch.cuda.reset_peak_memory_stats()
+    outs, counts, ms, device_ms = {}, {}, {}, {}
+    for v2, kname in ((False, "ntt"), (True, "ntt2")):
+        set_v2(v2)
+        try:
+            for op, (f, want) in ops.items():
+                reset_launches()
+                out = f(ct)
+                torch.cuda.synchronize()
+                counts[f"{op}/{kname}"] = c = read_launches()
+                expect_only(c, kname, f"rotation {op}")
+                got = ea.decrypt(out, sk)
+                err = float(np.max(np.abs(got - want(z))))
+                tol = min(CKKS_TOL, 4 * out.error_bound())
+                print(f"rotations ({kname}): {op} decrypt max |err| = "
+                      f"{err:.3e}, limit {tol:.3e}, {c[kname]} launches")
+                if not err <= tol:
+                    raise AssertionError(f"rotation {op}: decrypt oracle")
+                outs[op, v2] = out
+
+                def go(f=f):
+                    f(ct)
+                    torch.cuda.synchronize()
+                ms[f"{op}/{kname}"] = host_ms(go, 3)
+                device_ms[f"{op}/{kname}"] = event_ms(lambda: f(ct), reps=3,
+                                                      warm=1)
+        finally:
+            set_v2(False)
+    for op in ops:
+        a, b = outs[op, False], outs[op, True]
+        if (a.k, a.ratFactor) != (b.k, b.ratFactor) or not all(
+                torch.equal(x, y) for (_, x), (_, y) in zip(a.parts,
+                                                            b.parts)):
+            raise AssertionError(f"rotation {op}: K4 run != K2 run")
+    print(f"rotations: every op bit-identical through K2 and K4 "
+          f"({ea.nslots} slots, scale 2^{ROT_SCALE_BITS})")
+    for op, v in ms.items():
+        print(f"rotations: {op} {v:.3f} ms ({device_ms[op]:.3f} ms between "
+              f"CUDA events)")
+    print(json.dumps({
+        "metric": "torch_cuda_ckks_rotation_ms_m65536_b440",
+        "ms_per_op": ms, "event_ms_per_op": device_ms,
+        "launches_per_op": {k: {n: v for n, v in c.items() if v}
+                            for k, c in counts.items()},
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+        "card": card}))
+
+
+# ---------------------------------------------------------------------------
+# the cost probes (P1, P2)
+# ---------------------------------------------------------------------------
+
+PROBE_ROWS, PROBE_N, P1_CHAIN, P2_CHAIN = 160, 16384, 50, 100
+
+
+def probe_bound_ms(kind: str, variant: str, R: int, n: int):
+    """(bytes bound, multiplies bound) in ms of one application: x read and
+    out written once, the twiddles the variant reads once; 3 32-bit
+    multiplies a Shoup product."""
+    from helib_tpu_torch.ops import probes
+    words, h = R * n, n // 2
+    if kind == "p1":
+        if variant == "mul":
+            tab, muls = 2 * words, probes.MULS * words
+        else:
+            used = h if variant in ("bfly", "stage_w") \
+                else probes.p1_blocks(variant)
+            tab, muls = 2 * R * used, probes.ROUNDS * R * h
+        nbytes = 4 * (2 * words + tab + R)
+    else:
+        lo, hi = probes.p2_range(variant, n.bit_length() - 1)
+        nbytes = 4 * (2 * words + 2 * 3 * ((1 << hi) - (1 << lo)) + 3)
+        muls = 2 * (hi - lo) * R * h
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            3 * muls / INT32_MUL_PER_S * 1e3)
+
+
+def probe_path(dev, card: str) -> list:
+    """Each probe against its plain version on the card, then the chained
+    probe run (counts reset before, read after) and the timings; K1 and K5
+    per row at the same n for comparison.  Returns the P1 and P2 rows."""
+    from helib_tpu_torch.ops import probes, ntt2
+    from helib_tpu_torch.ops.conv import conv_cuda
+    from helib_tpu_torch.ops.ntt import aux_primes, aux_tree
+    from helib_tpu_torch.ops.modops import shoup, to_device
+
+    R, n = PROBE_ROWS, PROBE_N
+    qrow = aux_primes()[np.arange(R) % 3].astype(np.uint32)
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, qrow[:, None].astype(np.int64), (R, n))
+    w = rng.integers(1, qrow[:, None].astype(np.int64), (R, n))
+    wsh = shoup(w.astype(np.uint32), qrow[:, None].astype(np.uint64))
+    X, W, WS, Q = (to_device(a.astype(np.uint32), dev)
+                   for a in (x, w, wsh, qrow[:, None]))
+    aux = aux_tree(n, dev)["aux"]
+    probe = {"p1": (probes.P1_VARIANTS, P1_CHAIN, probes.p1_cuda,
+                    probes.p1_plain, (W, WS, Q)),
+             "p2": (probes.P2_PHASES, P2_CHAIN, probes.p2_cuda,
+                    probes.p2_plain, (aux["tw_all"], aux["tw_all_sh"],
+                                      aux["q"].reshape(3, 1)))}
+
+    def chained(run, v, args, count):
+        o = X
+        for _ in range(count):
+            o = run(v, o, *args)
+        return o
+
+    # on the card against the plain versions, one application and a chain
+    for kind, (variants, count, run, plain, args) in probe.items():
+        for v in variants:
+            got, ref = run(v, X, *args), plain(v, X, *args)
+            if not torch.equal(got, ref):
+                raise AssertionError(f"{kind} {v}: kernel != plain")
+            o = X
+            for _ in range(3):
+                o = plain(v, o, *args)
+            if not torch.equal(chained(run, v, args, 3), o):
+                raise AssertionError(f"{kind} {v}: chained kernel != plain")
+    print(f"probes: P1 ({len(probes.P1_VARIANTS)} variants) and P2 "
+          f"({len(probes.P2_PHASES)} phases) == plain bit for bit on "
+          f"[{R}, {n}]")
+
+    reset_launches()
+    for kind, (variants, count, run, _, args) in probe.items():
+        for v in variants:
+            chained(run, v, args, count)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"probes: the probe run launched {launches}")
+    if not (launches["p1"] == len(probe["p1"][0]) * P1_CHAIN
+            and launches["p2"] == len(probe["p2"][0]) * P2_CHAIN) or any(
+                v for k, v in launches.items() if k not in ("p1", "p2")):
+        raise AssertionError("probe run: unexpected launches")
+
+    # K1 (and K5) per row at n = 16384 on 162 rows
+    args1 = conv_inputs(n, 54, (1,), seed=7, dev=dev)
+    rows1 = args1[0].numel() // n
+    k1_us = event_ms(lambda: conv_cuda(*args1)) / rows1 * 1e3
+    k5_us = event_ms(lambda: ntt2.conv2_cuda(*args1)) / rows1 * 1e3
+    print(f"probes: per row at n={n}: K1 {k1_us:.3f} us, K5 (k="
+          f"{ntt2.K_MAX}) {k5_us:.3f} us")
+
+    rows, detail = [], {}
+    replaces = {"p1": "benchmarks/kernel_parts.py:26",
+                "p2": "benchmarks/kernel_phases.py:31"}
+    for kind, (variants, count, run, plain, args) in probe.items():
+        tot = tot_plain = bb = bo = 0.0
+        for v in variants:
+            app = event_ms(lambda: chained(run, v, args, count), reps=3,
+                           warm=1) / count
+            pl = event_ms(lambda: plain(v, X, *args), reps=2, warm=1)
+            b, o = probe_bound_ms(kind, v, R, n)
+            detail[f"{kind}/{v}"] = {"us_per_app": app * 1e3,
+                                     "us_per_row": app * 1e3 / R,
+                                     "bound_us": max(b, o) * 1e3,
+                                     "bound_by": "bytes" if b >= o
+                                     else "operations",
+                                     "plain_us": pl * 1e3}
+            print(f"probes: {kind} {v:9s} {app * 1e3:9.2f} us/app "
+                  f"{app * 1e3 / R:7.3f} us/row, bound {max(b, o) * 1e3:8.2f}"
+                  f" us ({'bytes' if b >= o else 'operations'}), plain "
+                  f"{pl * 1e3:10.1f} us")
+            tot, tot_plain, bb, bo = tot + app, tot_plain + pl, bb + b, bo + o
+        nv = len(variants)
+        rows.append({"name": kind, "route": "cuda",
+                     "source": "helib_tpu_torch/ops/csrc/probes.cu",
+                     "replaces": replaces[kind], "launches": launches[kind],
+                     "max_abs_err": 0, "ms": tot / nv,
+                     "plain_ms": tot_plain / nv, "bound_ms": max(bb, bo) / nv,
+                     "bound_by": "bytes" if bb >= bo else "operations",
+                     "library_ms": None})
+    print(json.dumps({"metric": "torch_cuda_probes_us", "rows": R, "n": n,
+                      "variants": detail, "k1_us_per_row": k1_us,
+                      "k5_us_per_row": k5_us, "card": card}))
+    return rows
+
+
+def ptxas_summary(log: str) -> list:
+    """One line per kernel of nvcc's -Xptxas -v report: name and template
+    arguments, registers, stack frame and spills."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            k = re.search(r"\d((?:conv_aux|conv2|ntt2|conv|ntt|p1|p2)_kernel)"
+                          r"(?:I(.*?)EE)?", m.group(1))
+            name = m.group(1) if k is None else k.group(1) + "<" + ",".join(
+                re.findall(r"L[a-z](\d+)", k.group(2) or "")) + ">"
+            cur = {"name": name}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur["frame"], cur["spill_st"], cur["spill_ld"] = m.groups()
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["regs"] = m.group(1)
+    return [f"{e['name']}: {e.get('regs', '?')} registers, "
+            f"{e.get('frame', '?')} B stack frame, spills "
+            f"{e.get('spill_st', '?')}/{e.get('spill_ld', '?')} B"
+            for e in out]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -764,15 +1175,16 @@ def main() -> int:
     dev = torch.device("cuda")
     card = card_line()
     print(f"card: {card}")
+    set_v2(False)
 
     start = time.time()
-    _build.build("conv", "ntt", "conv_aux")
-    print(f"build: conv.cu, ntt.cu and conv_aux.cu in "
+    sources = ("conv", "ntt", "conv_aux", "ntt2", "probes")
+    _build.build(*sources)
+    print(f"build: {', '.join(s + '.cu' for s in sources)} in "
           f"{time.time() - start:.1f} s")
-    for name in ("conv", "ntt", "conv_aux"):
-        for line in _build.ptxas_log.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+    for name in sources:
+        for line in ptxas_summary(_build.ptxas_log.get(name, "")):
+            print(f"  {name}.cu {line}")
 
     rows, err = check_conv(dev)
     print(f"kernels: conv == conv_plain bit for bit on {rows} rows "
@@ -785,28 +1197,48 @@ def main() -> int:
     print(f"kernels: conv_aux == conv_aux_plain bit for bit on {rows} rows "
           f"(n = 8 .. 65536, P = 5 and 20, aux-major with a lead dim, "
           f"max |err| = {err})")
+    rows, err = check_ntt2(dev)
+    print(f"kernels: ntt2 == ntt2_plain == ntt_plain bit for bit on {rows} "
+          f"rows (n = 8 .. 32768, P = 5 and 20, both directions, every k, "
+          f"max |err| = {err})")
+    rows, err = check_conv2(dev)
+    print(f"kernels: conv2 == conv2_plain == conv_plain bit for bit on "
+          f"{rows} rows (n = 8 .. 32768, P = 5 and 20, every k, "
+          f"max |err| = {err})")
 
     fn, args, launches = main_path(dev)
-    kernels = [measure(fn, args, launches, "conv",
-                       "torch_cuda_mult_relin_ops_per_s_m8009_b380_batch16",
-                       "bgv", card)]
+    kernels = {"conv": measure(
+        fn, args, launches, "conv",
+        "torch_cuda_mult_relin_ops_per_s_m8009_b380_batch16", "bgv", card)}
+    kernels["conv2"] = v2_path(
+        fn, args, "conv2", "conv", "bgv",
+        "torch_cuda_mult_relin_v2_ops_per_s_m8009_b380_batch16", card)
     del fn, args
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
-    fn, args, launches = ckks_path(dev)
-    kernels.append(measure(
+    fn, args, launches, ctx, sk = ckks_path(dev)
+    kernels["ntt"] = measure(
         fn, args, launches, "ntt",
         "torch_cuda_ckks_mult_relin_ops_per_s_m65536_b440_batch16", "ckks",
-        card))
+        card)
+    kernels["ntt2"] = v2_path(
+        fn, args, "ntt2", "ntt", "ckks",
+        "torch_cuda_ckks_mult_relin_v2_ops_per_s_m65536_b440_batch16", card)
     del fn, args
     torch.cuda.empty_cache()
+    rotation_path(ctx, sk, card)
+    del ctx, sk
+    torch.cuda.empty_cache()
 
-    kernels.append(perop_path(dev, card))
+    kernels["conv_aux"] = perop_path(dev, card)
+    torch.cuda.empty_cache()
+    kernels["p1"], kernels["p2"] = probe_path(dev, card)
     print(f"chip_smoke: {time.time() - start:.1f} s of command time after "
           f"start-up")
     print(card)
-    print(json.dumps({"kernels": kernels}))
+    order = ("conv", "ntt", "conv_aux", "ntt2", "conv2", "p1", "p2")
+    print(json.dumps({"kernels": [kernels[k] for k in order]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
 """CKKS approximate-numbers scheme: encoding, encryption, decryption,
-rescaling (helib_tpu.ckks, EncryptedArrayCKKS).
+rescaling, rotations (helib_tpu.ckks, EncryptedArrayCKKS).
 
 Complex slots via the canonical embedding on power-of-2 cyclotomics, with
 explicit scaling factors.  Slot j <-> evaluation at zeta^(5^j mod m),
@@ -7,8 +7,10 @@ j = 0 .. nslots-1 (nslots = phi(m)/2); the conjugate evaluations carry
 conj(z_j) so the coefficient vector is real.  Encoding, decoding and the
 decryption noise run on the host in numpy, exactly as helib_tpu does, so
 ciphertexts and decrypted values are bit-identical for the same seeds.
-Rotations, shift and the real/imaginary extraction need automorphism key
-switching and come with a later slice.
+Rotating by one slot is the automorphism X -> X^(5^-1); `shift` masks then
+rotates, and the real and imaginary parts come from the conjugation
+X -> X^(m-1) (Ctxt.conjugate), all through Ctxt.smart_automorph's key
+switching.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from .ctxt import Ctxt, frac_log2
 from . import dcrt
 from .dcrt import rt_mul, rt_add, sample_small, sample_gaussian, \
     small_coeffs_to_rt
+from .nt.numbth import inv_mod
 
 
 class EncryptedArrayCKKS:
@@ -186,3 +189,37 @@ class EncryptedArrayCKKS:
         if nk < ctxt.k:
             ctxt.mod_down_to(nk, False)
         return ctxt
+
+    # ---------------------------------------------------------- rotations
+    def rotate(self, ctxt: Ctxt, amt: int, key):
+        """Rotate the slots by amt (slot j -> slot j + amt), in place: the
+        automorphism X -> X^k, k = 5^(-amt) mod m."""
+        amt %= self.nslots
+        if amt == 0:
+            return ctxt
+        return ctxt.smart_automorph(pow(inv_mod(5, self.m), amt, self.m),
+                                    key)
+
+    def shift(self, ctxt: Ctxt, amt: int, key):
+        """Non-cyclic shift with zero fill: mask out the slots that would
+        wrap around, then rotate (reference EncryptedArrayCx::shift)."""
+        n = self.nslots
+        if amt == 0:
+            return ctxt
+        mask = np.zeros(n)
+        if amt > 0:
+            mask[: n - amt] = 1.0
+        else:
+            mask[-amt:] = 1.0
+        return self.rotate(self.mul_const(ctxt, mask), amt % n, key)
+
+    def extract_real_part(self, ctxt: Ctxt, key):
+        """Re(x) = (x + conj(x)) / 2; the halving only doubles ratFactor."""
+        out = ctxt.copy().add(ctxt.copy().conjugate(key))
+        out.ratFactor = Fraction(out.ratFactor) * 2
+        return out
+
+    def extract_imaginary_part(self, ctxt: Ctxt, key):
+        """Im(x) = (x - conj(x)) / (2i): the difference times -i/2."""
+        diff = ctxt.copy().sub(ctxt.copy().conjugate(key))
+        return self.mul_const(diff, np.full(self.nslots, -0.5j))

@@ -3,8 +3,8 @@
 The noise state machine follows helib_tpu's formulas exactly; magnitudes are
 log2-domain Python floats, the CKKS scale `ratFactor` an exact Fraction.
 Parts are [..., P, N] tensors, so one Ctxt can carry a batch of ciphertexts
-in its leading dims.  Constant multiplies, conjugation and the bootstrapping
-helpers come with later slices.
+in its leading dims.  Constant multiplies and the bootstrapping helpers come
+with later slices.
 """
 
 from __future__ import annotations
@@ -403,6 +403,10 @@ class Ctxt:
     def frobenius(self, j: int, key):
         """X -> X^(p^j) (reference Ctxt::frobeniusAutomorph)."""
         return self.smart_automorph(pow(self.ctx.p, j, self.ctx.m), key)
+
+    def conjugate(self, key):
+        """CKKS complex conjugation: X -> X^(m-1)."""
+        return self.smart_automorph(self.ctx.m - 1, key)
 
 
 def _align_ckks_factors(a: Ctxt, b: Ctxt):

@@ -20,7 +20,10 @@ Each has two versions of one function:
 
 `conv` / `conv_aux` dispatch on where the tensor lies: a CUDA tensor launches
 the kernel (or raises), a CPU tensor takes the plain version.  There is no
-fallback from one to the other.
+fallback from one to the other.  With HELIB_NTT_V2=1 (ops/ntt2.py `ntt_v2`)
+`conv` takes K5, K1's function under the block-list schedule: `conv2_cuda`
+or `conv2_plain`.  `conv_aux` does not look at it, as helib_tpu's aux-major
+branch is taken before v2 is read.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch
 from ._build import check_tensors, launch, load
 from .modops import mul_mod_shoup
 from .ntt import ntt_pow2_fwd, ntt_pow2_inv
+from .ntt2 import ntt_v2, conv2_cuda, conv2_plain
 
 MIN_LOG_N = 3    # B = 8 serves the smallest odd m (m = 3)
 MAX_LOG_N = 15    # 2^15 words = 128 KB of shared memory, within one CTA
@@ -77,7 +81,12 @@ conv_cuda.launches = 0
 
 def conv(x, aux, khat, khat_sh):
     """The convolution on x's device: the CUDA kernel for a CUDA tensor, the
-    plain torch version for a CPU tensor."""
+    plain torch version for a CPU tensor; K5's pair under HELIB_NTT_V2=1."""
+    v2, k = ntt_v2()
+    if v2:
+        if x.is_cuda:
+            return conv2_cuda(x, aux, khat, khat_sh, k)
+        return conv2_plain(x, aux, khat, khat_sh, k)
     if x.is_cuda:
         return conv_cuda(x, aux, khat, khat_sh)
     return conv_plain(x, aux, khat, khat_sh)

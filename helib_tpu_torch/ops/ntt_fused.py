@@ -15,7 +15,9 @@ function:
 
 `ntt` dispatches on where the tensor lies: a CUDA tensor launches the kernel
 (or raises), a CPU tensor takes the plain version.  There is no fallback from
-one to the other.  Its table dict `t` holds both forms for one prime-row set
+one to the other.  With HELIB_NTT_V2=1 (ops/ntt2.py `ntt_v2`) it takes K4,
+the same function under the block-list schedule, in place of K2: `ntt2_cuda`
+or `ntt2_plain`.  Its table dict `t` holds both forms for one prime-row set
 (Context.ntt_tree): the stage tables and `t["flat"]`.
 """
 
@@ -27,6 +29,7 @@ import torch
 
 from ._build import check_tensors, launch
 from .ntt import ntt_pow2_fwd, ntt_pow2_inv
+from .ntt2 import ntt_v2, ntt2_cuda, ntt2_plain
 
 MIN_LOG_N = 3    # the smallest transform the tests use (m = 16)
 MAX_LOG_N = 15   # 2^15 words = 128 KB of shared memory, within one CTA
@@ -67,7 +70,12 @@ ntt_cuda.launches = 0
 
 def ntt(x, t, inverse: bool):
     """The transform on x's device: the CUDA kernel for a CUDA tensor, the
-    plain torch version for a CPU tensor."""
+    plain torch version for a CPU tensor; K4's pair under HELIB_NTT_V2=1."""
+    v2, k = ntt_v2()
+    if v2:
+        if x.is_cuda:
+            return ntt2_cuda(x.contiguous(), t["flat"], t["q"], inverse, k)
+        return ntt2_plain(x, t["flat"], t["q"], inverse, k)
     if x.is_cuda:
         return ntt_cuda(x.contiguous(), t["flat"], t["q"], inverse)
     return ntt_plain(x, t, inverse)

@@ -322,3 +322,48 @@ def test_pow2_bgv_matches_reference():
     want[:len(full) - 32] -= full[32:]
     np.testing.assert_array_equal(tsk.decrypt_bgv(tprod), want % 17)
     np.testing.assert_array_equal(jsk.decrypt_bgv(jprod), want % 17)
+
+
+# decrypt limits of tests/test_ckks.py:92-127
+ROTATION_OPS = {"rotate": 1e-3, "rotate5": 1e-3, "conjugate": 1e-3,
+                "shift": 1e-2, "real": 1e-2, "imag": 1e-2}
+
+
+def _rotation_op(name, ea, ct, key):
+    if name == "rotate":
+        return ea.rotate(ct, 1, key), lambda z: np.roll(z, 1)
+    if name == "rotate5":
+        return ea.rotate(ct, 5, key), lambda z: np.roll(z, 5)
+    if name == "conjugate":
+        return ct.conjugate(key), np.conj
+    if name == "shift":
+        def shifted(z):
+            out = np.roll(z, 1)
+            out[0] = 0
+            return out
+        return ea.shift(ct, 1, key), shifted
+    if name == "real":
+        return ea.extract_real_part(ct, key), \
+            lambda z: np.real(z).astype(np.complex128)
+    return ea.extract_imaginary_part(ct, key), \
+        lambda z: np.imag(z).astype(np.complex128)
+
+
+@pytest.mark.parametrize("op", list(ROTATION_OPS))
+def test_rotation_family_bit_equal_and_decrypts(both, op):
+    """rotate (by 1 and 5), conjugate, shift and the real/imaginary
+    extraction: residues and metadata equal helib_tpu's, so do the
+    decrypted slots, which hold the numpy oracle within test_ckks.py's
+    limits.  The key-switching matrices are minted on first use, in the
+    same order on both sides."""
+    jc, tc, jsk, tsk, jpk, tpk, jea, tea = both
+    z = _slots(tea, 60)
+    jct = jea.encrypt(z, jpk, np.random.default_rng(61))
+    tct = tea.encrypt(z, tpk, np.random.default_rng(61))
+    jout, want = _rotation_op(op, jea, jct, jsk)
+    tout, _ = _rotation_op(op, tea, tct, tsk)
+    _meta_eq(tout, jout)
+    _parts_eq(tout, jout)
+    got = tea.decrypt(tout, tsk)
+    np.testing.assert_array_equal(got, jea.decrypt(jout, jsk))
+    assert float(np.max(np.abs(got - want(z)))) < ROTATION_OPS[op]

@@ -1,6 +1,6 @@
-"""The port's CUDA kernels (K1 conv, K2 ntt, K3 conv_aux) and its BGV and
-CKKS paths on the card, against the plain torch versions and the port on
-the CPU.
+"""The port's CUDA kernels (K1 conv, K2 ntt, K3 conv_aux, K4 ntt2, K5
+conv2, the probes P1 and P2) and its BGV and CKKS paths on the card, against
+the plain torch versions and the port on the CPU.
 
 Every test needs an NVIDIA GPU and skips without one.  The file imports no
 JAX, so it also runs where only PyTorch is installed (the conftest, which
@@ -19,7 +19,7 @@ from helib_tpu_torch.keys import SecKey
 from helib_tpu_torch.ops import ntt
 from helib_tpu_torch.ops.conv import (conv, conv_cuda, conv_plain, conv_aux,
                                       conv_aux_cuda, conv_aux_plain)
-from helib_tpu_torch.ops import ntt_fused
+from helib_tpu_torch.ops import ntt_fused, ntt2, probes
 from helib_tpu_torch.nt.primegen import gen_primes
 from helib_tpu_torch.ops.modops import shoup, to_device
 from helib_tpu_torch.pipeline import (make_batched_mult_relin,
@@ -167,3 +167,86 @@ def test_ckks_batched_mult_relin_on_gpu_equals_cpu_port(gpu):
     want = fn_cpu(*[a.cpu() for a in args])
     for g, w in zip(got, want):
         assert g.is_cuda and torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("n", [8, 64, 2048, 16384, 32768])
+def test_ntt2_kernel_matches_plain_at_every_k(gpu, n):
+    """K4 against ntt2_plain and K2's ntt_plain, both directions, every k."""
+    x, t = _ntt_args(n, 5, seed=n + 7, dev=gpu)
+    fwd = ntt_fused.ntt_plain(x, t, inverse=False)
+    inv = ntt_fused.ntt_plain(x, t, inverse=True)
+    for k in range(1, ntt2.K_MAX + 1):
+        before = ntt2.ntt2_cuda.launches
+        got_f = ntt2.ntt2_cuda(x, t["flat"], t["q"], False, k)
+        got_i = ntt2.ntt2_cuda(x, t["flat"], t["q"], True, k)
+        torch.cuda.synchronize()
+        assert ntt2.ntt2_cuda.launches == before + 2
+        assert torch.equal(got_f, fwd) and torch.equal(got_i, inv)
+        assert torch.equal(got_f, ntt2.ntt2_plain(x, t["flat"], t["q"],
+                                                  False, k))
+
+
+@pytest.mark.parametrize("n", [8, 64, 2048, 16384, 32768])
+def test_conv2_kernel_matches_plain_at_every_k(gpu, n):
+    args = _conv_args(n, 5, seed=n + 3, dev=gpu)
+    ref = conv_plain(*args)
+    for k in range(1, ntt2.K_MAX + 1):
+        before = ntt2.conv2_cuda.launches
+        got = ntt2.conv2_cuda(*args, k)
+        torch.cuda.synchronize()
+        assert ntt2.conv2_cuda.launches == before + 1
+        assert torch.equal(got, ref)
+        assert torch.equal(got, ntt2.conv2_plain(*args, k))
+
+
+def test_v2_dispatch_launches_k4_and_k5(gpu, monkeypatch):
+    """HELIB_NTT_V2=1 routes ntt and conv to K4 and K5, leaves K3 alone."""
+    monkeypatch.setenv("HELIB_NTT_V2", "1")
+    monkeypatch.setenv("HELIB_NTT_V2_K", "3")
+    x, t = _ntt_args(2048, 3, seed=5, dev=gpu)
+    args = _conv_args(4096, 3, seed=6, dev=gpu)
+    xa = args[0].movedim(1, 0).contiguous()
+    before = (ntt2.ntt2_cuda.launches, ntt2.conv2_cuda.launches,
+              ntt_fused.ntt_cuda.launches, conv_cuda.launches,
+              conv_aux_cuda.launches)
+    got = (ntt_fused.ntt(x, t, inverse=False), conv(*args),
+           conv_aux(xa, *args[1:]))
+    torch.cuda.synchronize()
+    after = (ntt2.ntt2_cuda.launches, ntt2.conv2_cuda.launches,
+             ntt_fused.ntt_cuda.launches, conv_cuda.launches,
+             conv_aux_cuda.launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 0, 0, 1]
+    assert torch.equal(got[0], ntt_fused.ntt_plain(x, t, inverse=False))
+    assert torch.equal(got[1], conv_plain(*args))
+    assert torch.equal(got[2], conv_aux_plain(xa, *args[1:]))
+
+
+def _probe_args(n, R, seed, dev):
+    raux = ntt.aux_primes()
+    qrow = raux[np.arange(R) % 3].astype(np.uint32)
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, qrow[:, None].astype(np.int64), (R, n))
+    w = rng.integers(1, qrow[:, None].astype(np.int64), (R, n))
+    wsh = shoup(w.astype(np.uint32), qrow[:, None].astype(np.uint64))
+    return [to_device(a.astype(np.uint32), dev)
+            for a in (x, w, wsh, qrow[:, None])]
+
+
+@pytest.mark.parametrize("variant", probes.P1_VARIANTS)
+def test_p1_probe_matches_plain(gpu, variant):
+    args = _probe_args(16384, 6, seed=1, dev=gpu)
+    before = probes.p1_cuda.launches
+    got = probes.p1_cuda(variant, *args)
+    torch.cuda.synchronize()
+    assert probes.p1_cuda.launches == before + 1
+    assert torch.equal(got, probes.p1_plain(variant, *args))
+
+
+@pytest.mark.parametrize("phase", probes.P2_PHASES)
+def test_p2_probe_matches_plain(gpu, phase):
+    x = _probe_args(16384, 6, seed=2, dev=gpu)[0]
+    aux = ntt.aux_tree(16384, gpu)["aux"]
+    tabs = (aux["tw_all"], aux["tw_all_sh"], aux["q"].reshape(3, 1))
+    got = probes.p2_cuda(phase, x, *tabs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, probes.p2_plain(phase, x, *tabs))

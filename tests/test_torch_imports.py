@@ -31,7 +31,9 @@ def _port_sources():
 def test_importing_every_module_loads_no_jax():
     mods = _port_modules()
     assert {"helib_tpu_torch.ops.conv", "helib_tpu_torch.io",
-            "helib_tpu_torch.ksstrategy", "helib_tpu_torch.dryrun"} <= set(mods)
+            "helib_tpu_torch.ksstrategy", "helib_tpu_torch.dryrun",
+            "helib_tpu_torch.ops.ntt2",
+            "helib_tpu_torch.ops.probes"} <= set(mods)
     assert len(mods) >= 18
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
