@@ -11,8 +11,10 @@ prime, fully reduced, on one of two layouts:
 Each has two versions of one function:
 
   * `conv_cuda` / `conv_aux_cuda` -- the hand-written CUDA kernels
-    (csrc/conv.cu, csrc/conv_aux.cu): one CTA per row with the row in shared
-    memory, and for K3 at n = 65536 a cluster of two CTAs per row;
+    (csrc/conv.cu, csrc/conv_aux.cu), two instantiations of one device
+    template (csrc/conv_rows.cuh): register composites under ops/ntt2.py's
+    schedule, one CTA a row with the row in shared memory, and for K3 at
+    n = 65536 a thread-block cluster a row;
   * `conv_plain` / `conv_aux_plain` -- the staged torch composition
     ntt_pow2_fwd -> Shoup multiply by khat -> ntt_pow2_inv
     (helib_tpu/ops/ntt.py:535-537), the reference each kernel is held to
@@ -39,7 +41,7 @@ from .ntt2 import ntt_v2, conv2_cuda, conv2_plain
 
 MIN_LOG_N = 3    # B = 8 serves the smallest odd m (m = 3)
 MAX_LOG_N = 15    # 2^15 words = 128 KB of shared memory, within one CTA
-AUX_MAX_LOG_N = 16   # 2^16 words: two CTAs of a cluster, 128 KB each
+AUX_MAX_LOG_N = 16   # 2^16 words: a cluster of CTAs (conv_rows.cuh)
 
 
 def conv_plain(x, aux, khat, khat_sh):
@@ -50,28 +52,37 @@ def conv_plain(x, aux, khat, khat_sh):
     return ntt_pow2_inv(Pr, aux)
 
 
-def conv_cuda(x, aux, khat, khat_sh):
-    """The CUDA kernel on x [..., 3, P, n] (int32, contiguous, on the GPU)."""
-    n = x.shape[-1]
+def launch_rows(name: str, x, aux, khat, khat_sh, max_log_n: int,
+                lib=None):
+    """Checks the tensors and launches helib_<name>_launch of
+    csrc/<name>.cu (or of `lib`, a variant build of it) on x [..., n]
+    (int32, contiguous, on the GPU); returns the output.  The layout check
+    is the caller's."""
+    n, P = x.shape[-1], x.shape[-2]
     log_n = n.bit_length() - 1
-    if x.dim() < 3 or x.shape[-3] != 3:
-        raise ValueError(f"conv kernel: x must be [..., 3, P, n], got "
-                         f"{tuple(x.shape)}")
-    P = x.shape[-2]
-    if n != 1 << log_n or not MIN_LOG_N <= log_n <= MAX_LOG_N:
-        raise ValueError(f"conv kernel: n={n} is not a power of two in "
-                         f"[2^{MIN_LOG_N}, 2^{MAX_LOG_N}]")
+    if n != 1 << log_n or not MIN_LOG_N <= log_n <= max_log_n:
+        raise ValueError(f"{name} kernel: n={n} is not a power of two in "
+                         f"[2^{MIN_LOG_N}, 2^{max_log_n}]")
     tabs = [aux["tw_all"], aux["tw_all_sh"], aux["itw_all"],
             aux["itw_all_sh"]]
-    check_tensors("conv", x.device,
+    check_tensors(name, x.device,
                   [("x", x, x.shape), ("khat", khat, (3, P, n)),
                    ("khat_sh", khat_sh, (3, P, n)),
                    ("aux q", aux["q"], (3, 1, 1))]
                   + [("table", t, (3, n)) for t in tabs])
     out = torch.empty_like(x)
-    launch("conv", x.device, x, out, ctypes.c_longlong(x.numel() // n),
+    launch(name, x.device, x, out, ctypes.c_longlong(x.numel() // n),
            ctypes.c_int(log_n), ctypes.c_int(P), *tabs, khat, khat_sh,
-           aux["q"])
+           aux["q"], lib=lib)
+    return out
+
+
+def conv_cuda(x, aux, khat, khat_sh):
+    """K1 on x [..., 3, P, n] (int32, contiguous, on the GPU)."""
+    if x.dim() < 3 or x.shape[-3] != 3:
+        raise ValueError(f"conv kernel: x must be [..., 3, P, n], got "
+                         f"{tuple(x.shape)}")
+    out = launch_rows("conv", x, aux, khat, khat_sh, MAX_LOG_N)
     conv_cuda.launches += 1
     return out
 
@@ -98,28 +109,11 @@ def conv_aux_plain(x, aux, khat, khat_sh):
 
 
 def conv_aux_cuda(x, aux, khat, khat_sh):
-    """The K3 CUDA kernel on x [3, ..., P, n] (int32, contiguous, on the
-    GPU)."""
-    n = x.shape[-1]
-    log_n = n.bit_length() - 1
+    """K3 on x [3, ..., P, n] (int32, contiguous, on the GPU)."""
     if x.dim() < 3 or x.shape[0] != 3:
         raise ValueError(f"conv_aux kernel: x must be [3, ..., P, n], got "
                          f"{tuple(x.shape)}")
-    P = x.shape[-2]
-    if n != 1 << log_n or not MIN_LOG_N <= log_n <= AUX_MAX_LOG_N:
-        raise ValueError(f"conv_aux kernel: n={n} is not a power of two in "
-                         f"[2^{MIN_LOG_N}, 2^{AUX_MAX_LOG_N}]")
-    tabs = [aux["tw_all"], aux["tw_all_sh"], aux["itw_all"],
-            aux["itw_all_sh"]]
-    check_tensors("conv_aux", x.device,
-                  [("x", x, x.shape), ("khat", khat, (3, P, n)),
-                   ("khat_sh", khat_sh, (3, P, n)),
-                   ("aux q", aux["q"], (3, 1, 1))]
-                  + [("table", t, (3, n)) for t in tabs])
-    out = torch.empty_like(x)
-    launch("conv_aux", x.device, x, out, ctypes.c_longlong(x.numel() // n),
-           ctypes.c_int(log_n), ctypes.c_int(P), *tabs, khat, khat_sh,
-           aux["q"])
+    out = launch_rows("conv_aux", x, aux, khat, khat_sh, AUX_MAX_LOG_N)
     conv_aux_cuda.launches += 1
     return out
 
@@ -135,10 +129,11 @@ def conv_aux(x, aux, khat, khat_sh):
     return conv_aux_plain(x, aux, khat, khat_sh)
 
 
-def conv_aux_max_clusters(device) -> int:
-    """How many 2-CTA clusters of K3's n = 65536 kernel the card holds at
-    once (cudaOccupancyMaxActiveClusters); 0 means it cannot launch."""
-    lib = load("conv_aux")
+def conv_aux_max_clusters(device, lib=None) -> int:
+    """How many clusters of K3's n = 65536 kernel (of `lib`, a variant
+    build, if given) the card holds at once
+    (cudaOccupancyMaxActiveClusters); 0 means it cannot launch."""
+    lib = lib or load("conv_aux")
     clusters = ctypes.c_int(0)
     with torch.cuda.device(device):
         err = lib.helib_conv_aux_max_clusters(ctypes.byref(clusters))

@@ -1,7 +1,8 @@
 """Port vs helib_tpu: K3, the aux-major Bluestein convolution -- its plain
 version against `apply_conv_aux(interpret=True)`, a torch emulation of the
-CUDA kernel's one-CTA and two-CTA-cluster schedules against the plain
-version, the aux-major `bluestein_apply` against the staged JAX transform
+CUDA kernels' register-composite schedule (conv_rows.cuh: one CTA, and
+clusters of 2 and 4 CTAs; K3's aux-major and K1's row-major row maps)
+against the plain versions, the aux-major `bluestein_apply` against the staged JAX transform
 (m = 101, 1271 and 32003), the table build, the dispatch by transform size
 and the wrapper's refusals (the CUDA kernel itself: test_torch_cuda.py)."""
 
@@ -18,6 +19,7 @@ from helib_tpu.ops.pallas_ntt import apply_conv_aux
 
 from helib_tpu_torch.ops import conv as convmod
 from helib_tpu_torch.ops import ntt as tntt
+from helib_tpu_torch.ops import ntt2
 from helib_tpu_torch.ops.conv import conv_aux_cuda, conv_aux_plain
 from helib_tpu_torch.ops.modops import (add_mod, sub_mod, mul_mod_shoup,
                                         shoup, to_device, to_host)
@@ -65,87 +67,138 @@ def test_conv_aux_plain_matches_apply_conv_aux_interpret(lead):
     np.testing.assert_array_equal(to_host(got), ref)
 
 
-def _stages(s, log_n, w, wsh, q, first, boff, inverse):
-    """common.cuh ntt_stages on rows s [R, 2^log_n] (w/wsh [R, n] flat
-    tables, q [R, 1]), the same index arithmetic, vectorized over each
-    stage's butterflies."""
-    b = torch.arange(1 << (log_n - 1))
-    for k in range(log_n):
-        st = log_n - 1 - k if inverse else k
-        log_half = log_n - 1 - st
-        half = 1 << log_half
-        i = b >> log_half
-        j0 = (i << (log_half + 1)) | (b & (half - 1))
-        j1 = j0 + half
-        idx = (1 << (first + st)) + (boff << st) + i
-        wi, wshi = w[:, idx], wsh[:, idx]
-        u, v = s[:, j0], s[:, j1]
-        s = s.clone()
-        if inverse:
-            s[:, j0] = add_mod(u, v, q)
-            s[:, j1] = mul_mod_shoup(sub_mod(u, v, q), wi, wshi, q)
-        else:
-            wv = mul_mod_shoup(v, wi, wshi, q)
-            s[:, j0] = add_mod(u, wv, q)
-            s[:, j1] = sub_mod(u, wv, q)
-    return s
+def _levels(r, s0, b, k, w, wsh, q, inverse):
+    """composite.cuh levels() on the group list r (r[t]: [R, G] words t of
+    G groups; w/wsh [R, n] per-row flat tables, q [R, 1]): level j of
+    composite (s0, k) on global block b [G], class cc under the twiddle
+    w[2^(s0+j) + b 2^j + cc], fully reduced."""
+    for jj in range(k):
+        j = k - 1 - jj if inverse else jj
+        stride = 1 << (k - 1 - j)
+        base = (1 << (s0 + j)) + (b << j)
+        for cc in range(1 << j):
+            wv, wsv = w[:, base + cc], wsh[:, base + cc]
+            for o in range(stride):
+                t = (cc << (k - j)) + o
+                if inverse:
+                    a, d = r[t], r[t + stride]
+                    r[t] = add_mod(a, d, q)
+                    r[t + stride] = mul_mod_shoup(sub_mod(a, d, q), wv, wsv,
+                                                  q)
+                else:
+                    u = r[t]
+                    v = mul_mod_shoup(r[t + stride], wv, wsv, q)
+                    r[t] = add_mod(u, v, q)
+                    r[t + stride] = sub_mod(u, v, q)
 
 
-def _emulate_kernel(x, aux, khat, khat_sh, cluster):
-    """conv_aux.cu's schedule on x [3, ..., P, n]: each row split over
-    `cluster` (1 or 2) CTAs, stage 0 of each direction across the halves,
-    row r on aux prime r / (rows/3) and spectral row t*P + r % P."""
+def _composite(s, log_loc, s0, k, c, h, w, wsh, q, inverse):
+    """Composite (s0, k) of conv_rows.cuh on the parts s [R, 2^log_loc]
+    of CTA h: the groups of for_each_group (word base + t L of group g,
+    block b = g / L), levels at global stage c + s0 and global block
+    (h << s0) + b."""
+    log_l = log_loc - s0 - k
+    g = torch.arange(1 << (log_loc - k))
+    b = g >> log_l
+    base = (b << (log_loc - s0)) | (g & ((1 << log_l) - 1))
+    idx = [base + (t << log_l) for t in range(1 << k)]
+    r = [s[:, i] for i in idx]
+    _levels(r, c + s0, (h << s0) + b, k, w, wsh, q, inverse)
+    out = s.clone()
+    for t, i in enumerate(idx):
+        out[:, i] = r[t]
+    return out
+
+
+def _emulate_kernel(x, aux, khat, khat_sh, cluster, aux_major=True):
+    """conv_rows.cuh on x (aux-major [3, ..., P, n] as K3, or row-major
+    [..., 3, P, n] as K1), each row on a cluster of `cluster` CTAs: the
+    cross composite (0, c) over the CTAs, forward split by groups with
+    word u of each group written to CTA u; then on each CTA's part the
+    composites of ops/ntt2.schedule(log_n - c, 3) at global stage c + s0
+    and global block (h << s0) + b, the last forward one, the khat product
+    and the first inverse one on the same groups; then the cross composite
+    inverse, read back from the CTAs, times n^-1."""
     n, P = x.shape[-1], x.shape[-2]
     log_n = n.bit_length() - 1
     rows = x.reshape(-1, n)
     R = rows.shape[0]
-    t = torch.arange(R) // (R // 3)
-    krow = t * P + torch.arange(R) % P
+    r_ = torch.arange(R)
+    if aux_major:
+        t = r_ // (R // 3)
+        krow = t * P + r_ % P
+    else:
+        krow = r_ % (3 * P)
+        t = krow // P
     q = aux["q"].reshape(3)[t][:, None]
     w_f, wsh_f = aux["tw_all"][t], aux["tw_all_sh"][t]
     w_i, wsh_i = aux["itw_all"][t], aux["itw_all_sh"][t]
     kh, khsh = khat.reshape(-1, n)[krow], khat_sh.reshape(-1, n)[krow]
-    split = cluster.bit_length() - 1
-    n_loc = n >> split
-    halves = []
+    c = cluster.bit_length() - 1
+    log_loc = log_n - c
+    share = 1 << (log_loc - c)
+    sched = ntt2.schedule(log_loc, 3)
+    parts = [torch.empty(R, 1 << log_loc, dtype=x.dtype)
+             for _ in range(cluster)]
+    for cta in range(cluster):      # the CTA that computes these groups
+        j = torch.arange(cta * share, (cta + 1) * share)
+        r = [rows[:, j + (u << log_loc)] for u in range(cluster)]
+        _levels(r, 0, torch.zeros_like(j), c, w_f, wsh_f, q, False)
+        for u in range(cluster):
+            parts[u][:, j] = r[u]
     for h in range(cluster):
-        own = slice(h * n_loc, (h + 1) * n_loc)
-        if cluster == 1:
-            s = rows
-        else:
-            u = rows[:, :n_loc]
-            wv = mul_mod_shoup(rows[:, n_loc:], w_f[:, 1:2], wsh_f[:, 1:2], q)
-            s = add_mod(u, wv, q) if h == 0 else sub_mod(u, wv, q)
-        s = _stages(s, log_n - split, w_f, wsh_f, q, split, h, False)
+        s = parts[h]
+        own = slice(h << log_loc, (h + 1) << log_loc)
+        for s0, k in sched:
+            s = _composite(s, log_loc, s0, k, c, h, w_f, wsh_f, q, False)
         s = mul_mod_shoup(s, kh[:, own], khsh[:, own], q)
-        halves.append(_stages(s, log_n - split, w_i, wsh_i, q, split, h,
-                              True))
-    if cluster == 2:
-        a, b = halves
-        halves = [add_mod(a, b, q),
-                  mul_mod_shoup(sub_mod(a, b, q), w_i[:, 1:2], wsh_i[:, 1:2],
-                                q)]
-    out = torch.cat([mul_mod_shoup(s, w_i[:, :1], wsh_i[:, :1], q)
-                     for s in halves], dim=1)
+        for s0, k in reversed(sched):
+            s = _composite(s, log_loc, s0, k, c, h, w_i, wsh_i, q, True)
+        parts[h] = s
+    out = torch.empty_like(rows)
+    for cta in range(cluster):
+        j = torch.arange(cta * share, (cta + 1) * share)
+        r = [parts[u][:, j] for u in range(cluster)]
+        _levels(r, 0, torch.zeros_like(j), c, w_i, wsh_i, q, True)
+        for u in range(cluster):
+            out[:, j + (u << log_loc)] = mul_mod_shoup(
+                r[u], w_i[:, :1], wsh_i[:, :1], q)
     return out.reshape(x.shape)
 
 
-@pytest.mark.parametrize("n", [64, 256])
-@pytest.mark.parametrize("cluster", [1, 2])
-def test_kernel_schedule_emulation_matches_plain(n, cluster):
-    """The two-half (cluster) schedule, with its global block offsets, and
-    the one-CTA schedule give conv_aux_plain's residues, under a lead dim."""
+def _emulation_args(n, P, seed, aux_major):
     raux = tntt.aux_primes().astype(np.int64)
-    rng = np.random.default_rng(n + cluster)
-    P = 3
+    rng = np.random.default_rng(seed)
     x = rng.integers(0, raux[:, None, None, None], (3, 2, P, n))
+    if not aux_major:
+        x = np.moveaxis(x, 0, 1)
     kh = rng.integers(0, raux[:, None, None], (3, P, n)).astype(np.uint32)
     khsh = shoup(kh, raux[:, None, None].astype(np.uint64))
     aux = tntt.aux_tree(n, "cpu")["aux"]
-    args = (to_device(x.astype(np.uint32), "cpu"), aux, to_device(kh, "cpu"),
-            to_device(khsh, "cpu"))
+    return (to_device(np.ascontiguousarray(x).astype(np.uint32), "cpu"), aux,
+            to_device(kh, "cpu"), to_device(khsh, "cpu"))
+
+
+@pytest.mark.parametrize("n", [64, 256, 2048])
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+def test_kernel_schedule_emulation_matches_plain(n, cluster):
+    """K3's map: the register-composite schedule on one CTA, and on a
+    cluster of 2 or 4 with the cross composite and the global stage and
+    block offsets, gives conv_aux_plain's residues under a lead dim."""
+    args = _emulation_args(n, 3, seed=n + cluster, aux_major=True)
     want = conv_aux_plain(*args)
     assert torch.equal(_emulate_kernel(*args, cluster=cluster), want)
+
+
+@pytest.mark.parametrize("n", [64, 256, 2048])
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+def test_kernel_schedule_emulation_row_major_matches_plain(n, cluster):
+    """K1's map (row r on aux prime (r / P) mod 3), the same schedule:
+    conv_plain's residues."""
+    args = _emulation_args(n, 3, seed=n + cluster + 7, aux_major=False)
+    want = convmod.conv_plain(*args)
+    assert torch.equal(_emulate_kernel(*args, cluster=cluster,
+                                       aux_major=False), want)
 
 
 @pytest.mark.parametrize("m,P,lead", [(101, 3, (2,)), (1271, 2, (2,)),

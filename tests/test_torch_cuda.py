@@ -37,19 +37,26 @@ def gpu():
     return torch.device("cuda")
 
 
-def _conv_args(n, P, seed, dev):
+def _conv_args(n, P, seed, dev, lead=(2,)):
     raux = ntt.aux_primes().astype(np.int64)
     rng = np.random.default_rng(seed)
-    x = rng.integers(0, raux[:, None, None], (2, 3, P, n)).astype(np.uint32)
+    x = rng.integers(0, raux[:, None, None], lead + (3, P, n)).astype(
+        np.uint32)
     kh = rng.integers(0, raux[:, None, None], (3, P, n)).astype(np.uint32)
     khsh = shoup(kh, raux[:, None, None].astype(np.uint64))
     return (to_device(x, dev), ntt.aux_tree(n, dev)["aux"],
             to_device(kh, dev), to_device(khsh, dev))
 
 
+# (P, lead): odd P; 273 rows, a multiple of neither the CTAs nor the
+# clusters the H100 holds at once (132 SMs)
+SHAPES = [(5, (2,)), (7, (13,))]
+
+
+@pytest.mark.parametrize("P,lead", SHAPES)
 @pytest.mark.parametrize("n", [8, 64, 2048, 16384, 32768])
-def test_conv_kernel_matches_plain_on_gpu(gpu, n):
-    args = _conv_args(n, 5, seed=n, dev=gpu)
+def test_conv_kernel_matches_plain_on_gpu(gpu, n, P, lead):
+    args = _conv_args(n, P, seed=n + P, dev=gpu, lead=lead)
     before = conv_cuda.launches
     got = conv(*args)
     torch.cuda.synchronize()
@@ -64,6 +71,15 @@ def test_conv_kernel_refuses_unsupported_lengths(gpu, n):
     with pytest.raises(ValueError, match="power of two"):
         conv_cuda(x, {}, None, None)
     assert conv_cuda.launches == before
+
+
+@pytest.mark.parametrize("n", [8, 64, 2048, 16384, 32768])
+def test_conv_kernel_equals_conv2_at_k3(gpu, n):
+    """K1 and K5 at k = 3 run the same schedule: equal bit for bit."""
+    args = _conv_args(n, 7, seed=n + 11, dev=gpu, lead=(3,))
+    got = conv_cuda(*args)
+    assert torch.equal(got, ntt2.conv2_cuda(*args, 3))
+    assert torch.equal(got, conv_plain(*args))
 
 
 def test_batched_mult_relin_on_gpu_equals_cpu_port(gpu):
@@ -83,11 +99,12 @@ def test_batched_mult_relin_on_gpu_equals_cpu_port(gpu):
         assert g.is_cuda and torch.equal(g.cpu(), w)
 
 
+@pytest.mark.parametrize("P,lead", SHAPES)
 @pytest.mark.parametrize("n", [256, 4096, 32768, 65536])
-def test_conv_aux_kernel_matches_plain_on_gpu(gpu, n):
-    """Aux-major [3, 2, P, n]; n = 65536 runs a 2-CTA cluster per row."""
-    x, aux, kh, khsh = _conv_args(n, 5, seed=n + 1, dev=gpu)
-    x = x.movedim(1, 0).contiguous()
+def test_conv_aux_kernel_matches_plain_on_gpu(gpu, n, P, lead):
+    """Aux-major [3, *lead, P, n]; n = 65536 runs a cluster per row."""
+    x, aux, kh, khsh = _conv_args(n, P, seed=n + P + 1, dev=gpu, lead=lead)
+    x = x.movedim(len(lead), 0).contiguous()
     before = conv_aux_cuda.launches
     got = conv_aux(x, aux, kh, khsh)
     torch.cuda.synchronize()
