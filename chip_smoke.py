@@ -1,25 +1,20 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --conv-candidates [BASELINE_CHECKOUT]
 
-The second form only times the occupancy candidates of K1 and K3's device
-template (CONV_CANDIDATES, conv_rows.cuh), and the baseline checkout's K1
-and K3 if given, on the inputs the BGV m=8009 and m=32003 paths give them.
-
-Phases of the first form, in order; any failure exits non-zero:
+Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi);
-  2. build the five CUDA sources from ops/csrc and K3 on 2-CTA clusters
-     (one nvcc per library, started together, sm_90a), timed, with every
-     kernel's registers and spills (K1 and K3: conv_rows_kernel<map,
-     cluster, threads, minimum CTAs an SM, split>; K4 and K5 for each
-     composite size k);
+  2. build the five CUDA sources from ops/csrc (one nvcc per source,
+     started together, sm_90a), timed, with every kernel's registers and
+     spills (K1 and K3: conv_rows_kernel<map, cluster, threads, minimum CTAs
+     an SM>; K4 and K5 for each composite size k);
   3. each kernel against its plain torch version on the card, bit for bit:
      K1 conv (and K5 at k = 3, the same schedule) and K2 ntt (both
      directions), n = 8 .. 32768, K3 conv_aux (aux-major), n = 8 .. 65536,
-     the last on 4-CTA clusters and on the 2-CTA build, and K4 ntt2 and K5
-     conv2 at every k, n = 8 .. 32768, P = 5 and 20, against their own
-     plain versions and K2's and K1's;
+     the last on 4-CTA clusters and on 2-CTA ones (conv_aux.cu's
+     helib_conv_aux_launch_c2), and K4 ntt2 and K5 conv2 at every k,
+     n = 8 .. 32768, P = 5 and 20, against their own plain versions and
+     K2's and K1's;
   4. the BGV path -- batched mult+relin at m=8009, p=2, bits=380, c=3,
      batch 16 -- through K1 (and no other kernel), held against the same
      chain with the plain convolution and against the port on the host CPU,
@@ -170,21 +165,12 @@ def check_conv(dev) -> tuple[int, int]:
     return rows, err
 
 
-# K3's cluster kernel on 2-CTA clusters of 128 KB halves, the fastest of
-# the 2-CTA candidates: built beside the shipped 4-CTA one and held to the
-# plain version at n = 65536 in phase 3
-TWO_CTA = ("HELIB_CONV_CLUSTER=2", "HELIB_CONV_CLUSTER_THREADS=1024",
-           "HELIB_CONV_CLUSTER_MIN_BLOCKS=1")
-
-
 def check_conv_aux(dev) -> tuple[int, int]:
     """K3 vs conv_aux_plain on aux-major [3, 2, P, n], bit for bit, and at
-    n = 65536 the 2-CTA-cluster build too; returns (rows compared, max
+    n = 65536 its 2-CTA-cluster entry too; returns (rows compared, max
     err)."""
-    from helib_tpu_torch.ops import _build
     from helib_tpu_torch.ops.conv import (AUX_MAX_LOG_N, conv_aux_cuda,
                                           conv_aux_plain, launch_rows)
-    two = _build.load("conv_aux", defines=TWO_CTA)
     rows, err = 0, 0
     for n in (8, 64, 2048, 4096, 16384, 32768, 65536):
         for P in (5, 20):
@@ -192,8 +178,8 @@ def check_conv_aux(dev) -> tuple[int, int]:
             x = x.movedim(1, 0).contiguous()
             ref = conv_aux_plain(x, aux, kh, khsh)
             runs = [conv_aux_cuda] + ([lambda *a: launch_rows(
-                "conv_aux", *a, AUX_MAX_LOG_N, lib=two)] if n == 65536
-                else [])
+                "conv_aux", *a, AUX_MAX_LOG_N, entry="launch_c2")]
+                if n == 65536 else [])
             for run in runs:
                 got = run(x, aux, kh, khsh)
                 torch.cuda.synchronize()
@@ -1192,110 +1178,6 @@ def beside(fn, args, name: str, label: str, other, card: str) -> dict:
     return ms
 
 
-# conv_rows.cuh's occupancy candidates (PERF.md), timed by
-# `chip_smoke.py --conv-candidates`: (source, label, macros).  The
-# one-CTA-a-row kernel is timed on K1's inputs (n = 16384), the cluster
-# kernel on K3's (n = 65536).
-CONV_CANDIDATES = tuple(
-    [("conv", f"t{t}_b{b}" + ("_cmax" if cmax else ""),
-      (f"HELIB_CONV_THREADS={t}", f"HELIB_CONV_MIN_BLOCKS={b}",
-       f"HELIB_CONV_CARVEOUT={100 if cmax else -1}"))
-     for t, b, cmax in ((256, 3, 0), (256, 3, 1), (512, 2, 0), (512, 2, 1),
-                        (1024, 1, 0))]
-    + [("conv_aux", f"c{c}_t{t}_b{b}" + ("" if split else "_unsplit")
-        + ("_cmax" if cmax else ""),
-        (f"HELIB_CONV_CLUSTER={c}", f"HELIB_CONV_CLUSTER_THREADS={t}",
-         f"HELIB_CONV_CLUSTER_MIN_BLOCKS={b}", f"HELIB_CONV_SPLIT={split}",
-         f"HELIB_CONV_CARVEOUT={100 if cmax else -1}"))
-       for c, t, b, split, cmax in ((2, 512, 1, 1, 0), (2, 1024, 1, 1, 0),
-                                    (2, 1024, 1, 1, 1), (2, 512, 1, 0, 0),
-                                    (4, 256, 3, 1, 0), (4, 256, 3, 1, 1),
-                                    (4, 512, 2, 1, 0), (4, 256, 2, 1, 0))])
-
-
-def conv_candidates(dev, card: str, baseline: str | None) -> None:
-    """Builds every candidate of CONV_CANDIDATES (and, with `baseline`, the
-    conv.cu and conv_aux.cu of that checkout), captures K1's inputs on the
-    BGV m=8009 batch-16 path and K3's on the m=32003 mult+relin, holds each
-    build to the plain version on every input, and times each (mean ms a
-    launch over the path's inputs, two rounds in opposite orders) beside
-    the shipped build and K5 at k = 3."""
-    from helib_tpu_torch.context import Context
-    from helib_tpu_torch.keys import SecKey
-    from helib_tpu_torch.ops import _build, conv as convmod, ntt2
-    from helib_tpu_torch.pipeline import (make_batched_mult_relin,
-                                          make_mult_relin)
-
-    t0 = time.time()
-    _build.build("conv", "conv_aux", "ntt2",
-                 variants=[(src, m) for src, _, m in CONV_CANDIDATES])
-    old = baseline and os.path.join(os.path.abspath(baseline),
-                                    "helib_tpu_torch", "ops", "csrc")
-    if old:
-        _build.build("conv", "conv_aux", csrc=old)
-    print(f"candidates: {len(_build.ptxas_log)} builds in "
-          f"{time.time() - t0:.1f} s")
-    for label, log in sorted(_build.ptxas_log.items()):
-        for line in ptxas_summary(log):
-            if "conv" in line:
-                print(f"  {label.split('@')[0]}"
-                      f"{' (baseline)' if '@' in label else ''}: {line}")
-
-    ctx = Context(m=M, p=P_PLAIN, r=1, bits=BITS, c=C, device=dev)
-    fn, args = make_batched_mult_relin(ctx, SecKey(ctx, seed=SEED), BATCH)
-    with capture(convmod, "conv") as cap1:
-        fn(*args)
-    ctx = Context(**BIG, device=dev)
-    fn, args = make_mult_relin(ctx, SecKey(ctx, seed=BIG_SEED))
-    with capture(convmod, "conv_aux") as cap3:
-        fn(*args)
-    torch.cuda.synchronize()
-    del fn, args, ctx
-
-    def rows_of(src, lib):
-        top = convmod.MAX_LOG_N if src == "conv" else convmod.AUX_MAX_LOG_N
-        return lambda *a: convmod.launch_rows(src, *a, top, lib=lib)
-    runs = {"conv": {"shipped": convmod.conv_cuda,
-                     "conv2_k3": lambda *a: ntt2.conv2_cuda(*a, 3)},
-            "conv_aux": {"shipped": convmod.conv_aux_cuda}}
-    for src, label, macros in CONV_CANDIDATES:
-        runs[src][label] = rows_of(src, _build.load(src, defines=macros))
-    if old:
-        for src in runs:
-            runs[src]["baseline"] = rows_of(src, _build.load(src, csrc=old))
-    result = {}
-    for src, calls in (("conv", cap1.calls), ("conv_aux", cap3.calls)):
-        plain = convmod.conv_plain if src == "conv" else \
-            convmod.conv_aux_plain
-        refs = [plain(*a) for a in calls]
-        for label, f in runs[src].items():
-            for a, ref in zip(calls, refs):
-                if not torch.equal(f(*a), ref):
-                    raise AssertionError(f"candidate {src} {label} != plain "
-                                         f"on {tuple(a[0].shape)}")
-        ms = {label: [] for label in runs[src]}
-        for order in (list(runs[src]), list(runs[src])[::-1]):
-            for label in order:
-                f = runs[src][label]
-                ms[label].append(sum(event_ms(lambda: f(*a)) for a in calls)
-                                 / len(calls))
-        result[src] = {label: {"ms": sum(v) / 2, "rounds": v}
-                       for label, v in ms.items()}
-        print(f"candidates: {src} on {len(calls)} captured inputs "
-              f"{sorted({tuple(a[0].shape) for a in calls})}, all == plain")
-        for label, r in sorted(result[src].items(), key=lambda kv:
-                               kv[1]["ms"]):
-            print(f"  {src} {label:18s} {r['ms']:.4f} ms "
-                  f"({r['rounds'][0]:.4f}, {r['rounds'][1]:.4f})")
-    clusters = {label: convmod.conv_aux_max_clusters(
-        dev, _build.load("conv_aux", defines=macros))
-        for src, label, macros in CONV_CANDIDATES if src == "conv_aux"}
-    clusters["shipped"] = convmod.conv_aux_max_clusters(dev)
-    print(json.dumps({"metric": "torch_cuda_conv_candidates_ms",
-                      **result, "conv_aux_clusters_resident": clusters,
-                      "card": card}))
-
-
 def ptxas_summary(log: str) -> list:
     """One line per kernel of nvcc's -Xptxas -v report: name and template
     arguments, registers, stack frame and spills."""
@@ -1326,7 +1208,7 @@ def ptxas_summary(log: str) -> list:
             for e in out]
 
 
-def main(argv) -> int:
+def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1336,19 +1218,15 @@ def main(argv) -> int:
     card = card_line()
     print(f"card: {card}")
     set_v2(False)
-    if argv[:1] == ["--conv-candidates"]:
-        conv_candidates(dev, card, argv[1] if len(argv) > 1 else None)
-        print(card)
-        return 0
 
     start = time.time()
     sources = ("conv", "ntt", "conv_aux", "ntt2", "probes")
-    _build.build(*sources, variants=[("conv_aux", TWO_CTA)])
-    print(f"build: {', '.join(s + '.cu' for s in sources)} and conv_aux.cu "
-          f"on 2-CTA clusters in {time.time() - start:.1f} s")
-    for label, log in _build.ptxas_log.items():
-        for line in ptxas_summary(log):
-            print(f"  {label} {line}")
+    _build.build(*sources)
+    print(f"build: {', '.join(s + '.cu' for s in sources)} in "
+          f"{time.time() - start:.1f} s")
+    for name in sources:
+        for line in ptxas_summary(_build.ptxas_log.get(name, "")):
+            print(f"  {name}.cu {line}")
 
     rows, err = check_conv(dev)
     print(f"kernels: conv == conv_plain == conv2 (k=3) bit for bit on {rows} "
@@ -1412,4 +1290,4 @@ def main(argv) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    sys.exit(main())

@@ -4,10 +4,7 @@ Each source is compiled by `nvcc` for sm_90a into a shared library with a
 plain C interface, loaded with ctypes.  The library lands in
 `build/torch_ext/` at the repository root (git-ignored), named by a hash of
 its source, the shared headers (csrc/*.cuh) and the flags, so a changed
-source or header rebuilds and an unchanged one is reused.  A variant build
-adds -D macros (the occupancy candidates of conv_rows.cuh) or compiles the
-sources of another directory (a baseline checkout's csrc/, timed beside
-this one by `chip_smoke.py --conv-candidates`).  Nothing is
+source or header rebuilds and an unchanged one is reused.  Nothing is
 compiled at import time: the first launch builds.  `check_tensors` and
 `launch` are the ctypes side that every kernel wrapper shares.
 """
@@ -45,81 +42,63 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME)")
 
 
-def _flags(defines) -> list:
-    return NVCC_FLAGS + [f"-D{d}" for d in defines]
-
-
-def _label(name: str, defines, csrc: str = CSRC) -> str:
-    """The key of a build in `ptxas_log`: the source name, the macros of a
-    variant build (HELIB_CONV_THREADS=256, ...) in brackets, and another
-    source directory after an @."""
-    return (name + (f"[{','.join(defines)}]" if defines else "")
-            + ("" if csrc == CSRC else f"@{csrc}"))
-
-
-def _target(name: str, csrc: str, defines) -> tuple[str, str]:
+def _target(name: str) -> tuple[str, str]:
     """(source, library path); the name hashes the source, every shared
-    header of its directory and the flags, so a changed header rebuilds
-    too."""
-    src = os.path.join(csrc, name + ".cu")
-    headers = sorted(f for f in os.listdir(csrc) if f.endswith(".cuh"))
-    digest = hashlib.sha1(" ".join(_flags(defines) + [csrc]).encode())
-    for path in [src] + [os.path.join(csrc, h) for h in headers]:
+    header of csrc/ and the flags, so a changed header rebuilds too."""
+    src = os.path.join(CSRC, name + ".cu")
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + [os.path.join(CSRC, h) for h in headers]:
         with open(path, "rb") as f:
             digest.update(f.read())
     so = f"lib{name}_{digest.hexdigest()[:12]}.so"
     return src, os.path.join(BUILD_DIR, so)
 
 
-def build(*names: str, csrc: str = CSRC, variants=()) -> dict:
-    """Compile the named sources of `csrc` and each (name, macros) pair of
-    `variants` that are not built yet, all nvcc processes started together;
-    returns {label: path of the shared library} (label: `_label`)."""
+def build(*names: str) -> dict:
+    """Compile the named sources that are not built yet, all nvcc processes
+    started together; returns {name: path of the shared library}."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    jobs = [(n, ()) for n in names] + [(n, tuple(d)) for n, d in variants]
-    paths = {_label(n, d, csrc): (_target(n, csrc, d), d) for n, d in jobs}
+    paths = {name: _target(name) for name in names}
     with open(os.path.join(BUILD_DIR, ".lock"), "w") as lf:
         fcntl.flock(lf, fcntl.LOCK_EX)      # one build at a time, any process
         procs = {}
-        for label, ((src, so), d) in paths.items():
+        for name, (src, so) in paths.items():
             if not os.path.exists(so):
-                cmd = [_nvcc(), *_flags(d), "-o", so + ".tmp", src]
-                procs[label] = subprocess.Popen(
+                cmd = [_nvcc(), *NVCC_FLAGS, "-o", so + ".tmp", src]
+                procs[name] = subprocess.Popen(
                     cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                     text=True)
         failed = []
-        for label, proc in procs.items():
+        for name, proc in procs.items():
             try:
                 log, _ = proc.communicate(timeout=900)
             except subprocess.TimeoutExpired:
                 for p in procs.values():
                     p.kill()
                 raise
-            ptxas_log[label] = log
-            so = paths[label][0][1]
+            ptxas_log[name] = log
             if proc.returncode != 0:
-                failed.append(f"{label}:\n{log}")
+                failed.append(f"{name}.cu:\n{log}")
             else:
-                os.replace(so + ".tmp", so)
+                os.replace(paths[name][1] + ".tmp", paths[name][1])
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return {label: so for label, ((_, so), _) in paths.items()}
+    return {name: so for name, (_, so) in paths.items()}
 
 
-def load(name: str, csrc: str = CSRC, defines: tuple = ()) -> ctypes.CDLL:
-    """The loaded library of <csrc>/<name>.cu built with the macros
-    `defines`, built on first use, with the return types of its
-    helib_<name>_launch and helib_cuda_error_string set."""
-    key = (name, csrc, tuple(defines))
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ops/csrc/<name>.cu, built on first use, with
+    the return types of its helib_<name>_launch and helib_cuda_error_string
+    set."""
     with _lock:
-        lib = _libs.get(key)
+        lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(build(csrc=csrc, variants=[(name, defines)])[
-                _label(name, tuple(defines), csrc)])
+            lib = ctypes.CDLL(build(name)[name])
             getattr(lib, f"helib_{name}_launch").restype = ctypes.c_int
             lib.helib_cuda_error_string.restype = ctypes.c_char_p
             lib.helib_cuda_error_string.argtypes = [ctypes.c_int]
-            _libs[key] = lib
+            _libs[name] = lib
         return lib
 
 
@@ -135,17 +114,17 @@ def check_tensors(kernel: str, device, specs) -> None:
                              f"{t.device}")
 
 
-def launch(name: str, device, *args, lib=None) -> None:
-    """Calls helib_<name>_launch of ops/csrc/<name>.cu (or of `lib`, a
-    variant build from `load`) with `args` and the current stream of
-    `device`: a tensor is passed as its device pointer, anything else as the
-    ctypes scalar it is.  Raises RuntimeError on a CUDA error."""
-    lib = lib or load(name)
+def launch(name: str, device, *args, entry: str = "launch") -> None:
+    """Calls helib_<name>_<entry> of ops/csrc/<name>.cu with `args` and the
+    current stream of `device`: a tensor is passed as its device pointer,
+    anything else as the ctypes scalar it is.  Raises RuntimeError on a CUDA
+    error."""
+    lib = load(name)
     cargs = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
              else a for a in args]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, f"helib_{name}_launch")(
+        err = getattr(lib, f"helib_{name}_{entry}")(
             *cargs, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: "

@@ -53,11 +53,10 @@ def conv_plain(x, aux, khat, khat_sh):
 
 
 def launch_rows(name: str, x, aux, khat, khat_sh, max_log_n: int,
-                lib=None):
-    """Checks the tensors and launches helib_<name>_launch of
-    csrc/<name>.cu (or of `lib`, a variant build of it) on x [..., n]
-    (int32, contiguous, on the GPU); returns the output.  The layout check
-    is the caller's."""
+                entry: str = "launch"):
+    """Checks the tensors and launches helib_<name>_<entry> of
+    csrc/<name>.cu on x [..., n] (int32, contiguous, on the GPU); returns
+    the output.  The layout check is the caller's."""
     n, P = x.shape[-1], x.shape[-2]
     log_n = n.bit_length() - 1
     if n != 1 << log_n or not MIN_LOG_N <= log_n <= max_log_n:
@@ -73,7 +72,7 @@ def launch_rows(name: str, x, aux, khat, khat_sh, max_log_n: int,
     out = torch.empty_like(x)
     launch(name, x.device, x, out, ctypes.c_longlong(x.numel() // n),
            ctypes.c_int(log_n), ctypes.c_int(P), *tabs, khat, khat_sh,
-           aux["q"], lib=lib)
+           aux["q"], entry=entry)
     return out
 
 
@@ -129,11 +128,10 @@ def conv_aux(x, aux, khat, khat_sh):
     return conv_aux_plain(x, aux, khat, khat_sh)
 
 
-def conv_aux_max_clusters(device, lib=None) -> int:
-    """How many clusters of K3's n = 65536 kernel (of `lib`, a variant
-    build, if given) the card holds at once
+def conv_aux_max_clusters(device) -> int:
+    """How many clusters of K3's n = 65536 kernel the card holds at once
     (cudaOccupancyMaxActiveClusters); 0 means it cannot launch."""
-    lib = lib or load("conv_aux")
+    lib = load("conv_aux")
     clusters = ctypes.c_int(0)
     with torch.cuda.device(device):
         err = lib.helib_conv_aux_max_clusters(ctypes.byref(clusters))

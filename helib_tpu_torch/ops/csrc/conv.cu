@@ -16,11 +16,18 @@
 // instead of 14, the khat product fused between the last forward and the
 // first inverse composite -- K5's design, and K5's time.  Occupancy: 512
 // threads, at least 2 CTAs an SM (64 registers), the default carveout
-// (HELIB_CONV_THREADS, HELIB_CONV_MIN_BLOCKS; PERF.md has the candidates).
-// The bound is unchanged (chip_smoke.py conv_bound_ms): at n = 16384 the
+// (kRowThreads, kRowMinBlocks; PERF.md has the candidates tried).  The bound
+// is unchanged (chip_smoke.py conv_bound_ms): at n = 16384 the
 // 3 (n log2 n + 2n) 32-bit multiplies a row, not its 16n bytes.
 
 #include "conv_rows.cuh"
+
+namespace {
+
+using OneCta = helib::ConvRows<helib::RowMajor, 1, helib::kRowThreads,
+                               helib::kRowMinBlocks>;
+
+}  // namespace
 
 extern "C" {
 
@@ -33,10 +40,8 @@ int helib_conv_launch(const void* x, void* out, long long rows, int log_n,
                       const void* khat_sh, const void* aux_q, void* stream) {
   if (rows <= 0) return 0;
   if (log_n < 3 || log_n > 15) return static_cast<int>(cudaErrorInvalidValue);
-  return helib::ConvRows<helib::RowMajor, 1, HELIB_CONV_THREADS,
-                         HELIB_CONV_MIN_BLOCKS, true>::
-      launch(x, out, rows, log_n, P, tw, tw_sh, itw, itw_sh, khat, khat_sh,
-             aux_q, static_cast<cudaStream_t>(stream));
+  return OneCta::launch(x, out, rows, log_n, P, tw, tw_sh, itw, itw_sh, khat,
+                        khat_sh, aux_q, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

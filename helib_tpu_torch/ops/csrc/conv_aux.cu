@@ -23,21 +23,23 @@
 //     writes out times n^-1;
 //   * occupancy: 256 threads and 3 CTAs an SM (80 registers, 92 clusters
 //     resident) instead of one 512-thread CTA an SM.
-// HELIB_CONV_CLUSTER* choose the cluster kernel's configuration (2-CTA
-// clusters of 128 KB halves build too); PERF.md has the candidates.  The
-// bound is unchanged (chip_smoke.py conv_bound_ms): at n = 65536 the 16n
-// bytes a row moves, not its multiplies.
+// The fastest 2-CTA configuration (1024 threads, 128 KB halves) is a second
+// entry, helib_conv_aux_launch_c2, on no path: chip_smoke.py holds it to the
+// plain version so that the template's cluster of 2 stays checked on the
+// card; PERF.md has the candidates tried.  The bound is unchanged
+// (chip_smoke.py conv_bound_ms): at n = 65536 the 16n bytes a row moves, not
+// its multiplies.
 
 #include "conv_rows.cuh"
 
 namespace {
 
-using OneCta = helib::ConvRows<helib::AuxMajor, 1, HELIB_CONV_THREADS,
-                               HELIB_CONV_MIN_BLOCKS, true>;
+using OneCta = helib::ConvRows<helib::AuxMajor, 1, helib::kRowThreads,
+                               helib::kRowMinBlocks>;
 using Cluster =
-    helib::ConvRows<helib::AuxMajor, HELIB_CONV_CLUSTER,
-                    HELIB_CONV_CLUSTER_THREADS, HELIB_CONV_CLUSTER_MIN_BLOCKS,
-                    HELIB_CONV_SPLIT != 0>;
+    helib::ConvRows<helib::AuxMajor, helib::kClusterSize,
+                    helib::kClusterThreads, helib::kClusterMinBlocks>;
+using Cluster2 = helib::ConvRows<helib::AuxMajor, 2, 1024, 1>;
 
 }  // namespace
 
@@ -60,6 +62,22 @@ int helib_conv_aux_launch(const void* x, void* out, long long rows,
                                        itw_sh, khat, khat_sh, aux_q, s)
                      : OneCta::launch(x, out, rows, log_n, P, tw, tw_sh, itw,
                                       itw_sh, khat, khat_sh, aux_q, s);
+}
+
+// helib_conv_aux_launch at log_n = 16 on 2-CTA clusters; any other log_n is
+// an invalid value.
+int helib_conv_aux_launch_c2(const void* x, void* out, long long rows,
+                             int log_n, int P, const void* tw,
+                             const void* tw_sh, const void* itw,
+                             const void* itw_sh, const void* khat,
+                             const void* khat_sh, const void* aux_q,
+                             void* stream) {
+  if (rows <= 0) return 0;
+  if (rows % 3 != 0 || log_n != 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return Cluster2::launch(x, out, rows, log_n, P, tw, tw_sh, itw, itw_sh,
+                          khat, khat_sh, aux_q,
+                          static_cast<cudaStream_t>(stream));
 }
 
 // The number of clusters of the n = 65536 kernel the card can hold at once

@@ -40,9 +40,9 @@
 // j + t n/C.  Forward, each CTA takes 1/C of the groups, reads each word of
 // x once from device memory and writes word t of its groups into CTA t's
 // shared memory (distributed shared memory); inverse, each CTA reads its
-// groups back from the C CTAs and writes out.  (HELIB_CONV_SPLIT=0 builds
-// the variant in which every CTA reads all of x and keeps its own part, for
-// comparison.)  Between the two, each CTA runs the local schedule
+// groups back from the C CTAs and writes out.  (Every CTA reading all of x
+// and keeping its own part, as the staged kernel did, was 20 % slower on the
+// H100; PERF.md.)  Between the two, each CTA runs the local schedule
 // schedule(log_n - c, 3) on its part: local composite (s0, k) is global stage
 // c + s0 and local block b is global block (h << s0) + b, which selects the
 // twiddles.  Four cluster barriers: before the first remote write (every CTA
@@ -53,7 +53,7 @@
 // (0, 2) and each quarter runs schedule(14, 3).
 //
 // Occupancy, chosen on the H100 among the candidates PERF.md lists (all
-// bit-identical; chip_smoke.py --conv-candidates):
+// bit-identical), and fixed below (kRow*, kCluster*):
 //   * one CTA a row: 512 threads, __launch_bounds__ minimum 2 CTAs an SM
 //     (64 registers, as K5) and the default shared-memory carveout.  At
 //     n = 16384 that is K5's time; forcing the largest carveout cost 7 %
@@ -78,39 +78,20 @@
 #include "common.cuh"
 #include "composite.cuh"
 
-// Threads a CTA and minimum CTAs an SM of the one-CTA-a-row kernel
-// (n <= 32768), and of the cluster kernel (n = 65536); the cluster size;
-// whether the cross composite splits its groups over the cluster (1) or
-// every CTA reads all of x (0).
-#ifndef HELIB_CONV_THREADS
-#define HELIB_CONV_THREADS 512
-#endif
-#ifndef HELIB_CONV_MIN_BLOCKS
-#define HELIB_CONV_MIN_BLOCKS 2
-#endif
-#ifndef HELIB_CONV_CLUSTER
-#define HELIB_CONV_CLUSTER 4
-#endif
-#ifndef HELIB_CONV_CLUSTER_THREADS
-#define HELIB_CONV_CLUSTER_THREADS 256
-#endif
-#ifndef HELIB_CONV_CLUSTER_MIN_BLOCKS
-#define HELIB_CONV_CLUSTER_MIN_BLOCKS 3
-#endif
-#ifndef HELIB_CONV_SPLIT
-#define HELIB_CONV_SPLIT 1
-#endif
-// The preferred shared-memory carveout of both kernels, in percent of the
-// SM's unified L1 and shared memory; -1 keeps the default.
-#ifndef HELIB_CONV_CARVEOUT
-#define HELIB_CONV_CARVEOUT -1
-#endif
-
 namespace helib {
 
 namespace cg = cooperative_groups;
 
 constexpr int kConvK = 3;  // ops/ntt2.py K_MAX: the largest composite
+
+// The shipped configurations: threads a CTA and minimum CTAs an SM of the
+// one-CTA-a-row kernel (n <= 32768); cluster size, threads a CTA and
+// minimum CTAs an SM of the cluster kernel (n = 65536).
+constexpr int kRowThreads = 512;
+constexpr int kRowMinBlocks = 2;
+constexpr int kClusterSize = 4;
+constexpr int kClusterThreads = 256;
+constexpr int kClusterMinBlocks = 3;
 
 // The k of composite 0 of schedule(log_n, kConvK); composite c > 0 covers
 // stages [first + (c - 1) kConvK, first + c kConvK).
@@ -151,7 +132,7 @@ __host__ __device__ constexpr int log2_cluster(int cluster) {
   return cluster == 4 ? 2 : cluster == 2 ? 1 : 0;
 }
 
-template <class Map, int kCluster, int kThreads, int kMinBlocks, bool kSplit>
+template <class Map, int kCluster, int kThreads, int kMinBlocks>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 conv_rows_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
                  int log_n, int P, long long rows,
@@ -200,21 +181,19 @@ conv_rows_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
   // the cross composite (0, c), forward: x -> the CTAs' shared memory
   if constexpr (kCluster > 1) {
     cg::cluster_group cluster = cg::this_cluster();
-    const int share = kSplit ? 1 << (log_loc - c) : 1 << log_loc;
-    const int j0 = kSplit ? h * share : 0;
+    const int share = 1 << (log_loc - c);
+    const int j0 = h * share;
     uint32_t* dst[kCluster];
 #pragma unroll
-    for (int u = 0; u < kCluster; ++u)
-      dst[u] = kSplit ? cluster.map_shared_rank(s, u) : s;
-    if constexpr (kSplit) cluster.sync();
+    for (int u = 0; u < kCluster; ++u) dst[u] = cluster.map_shared_rank(s, u);
+    cluster.sync();
     for (int j = j0 + threadIdx.x; j < j0 + share; j += blockDim.x) {
       uint32_t r[kCluster];
 #pragma unroll
       for (int u = 0; u < kCluster; ++u) r[u] = xr[j + (u << log_loc)];
       levels<c, false>(r, 0, 0, w_f, wsh_f, q);
 #pragma unroll
-      for (int u = 0; u < kCluster; ++u)
-        if (kSplit || u == h) dst[u][swz(j)] = r[u];
+      for (int u = 0; u < kCluster; ++u) dst[u][swz(j)] = r[u];
     }
     cluster.sync();
   }
@@ -281,8 +260,8 @@ conv_rows_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
   if constexpr (kCluster > 1) {
     cg::cluster_group cluster = cg::this_cluster();
     cluster.sync();
-    const int share = kSplit ? 1 << (log_loc - c) : 1 << log_loc;
-    const int j0 = kSplit ? h * share : 0;
+    const int share = 1 << (log_loc - c);
+    const int j0 = h * share;
     const uint32_t* src[kCluster];
 #pragma unroll
     for (int u = 0; u < kCluster; ++u)
@@ -293,8 +272,7 @@ conv_rows_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
       for (int u = 0; u < kCluster; ++u) r[u] = src[u][swz(j)];
       levels<c, true>(r, 0, 0, w_i, wsh_i, q);
 #pragma unroll
-      for (int u = 0; u < kCluster; ++u)
-        if (kSplit || u == h) gstore(j + (u << log_loc), r[u]);
+      for (int u = 0; u < kCluster; ++u) gstore(j + (u << log_loc), r[u]);
     }
     cluster.sync();
   }
@@ -303,10 +281,10 @@ conv_rows_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
 // The launch of one configuration: `rows` rows of 2^log_n words, a cluster
 // of kCluster CTAs a row, each holding 2^log_n / kCluster words in dynamic
 // shared memory.
-template <class Map, int kCluster, int kThreads, int kMinBlocks, bool kSplit>
+template <class Map, int kCluster, int kThreads, int kMinBlocks>
 struct ConvRows {
   static auto kernel() {
-    return conv_rows_kernel<Map, kCluster, kThreads, kMinBlocks, kSplit>;
+    return conv_rows_kernel<Map, kCluster, kThreads, kMinBlocks>;
   }
 
   static cudaLaunchConfig_t config(long long rows, int log_n,
@@ -328,13 +306,9 @@ struct ConvRows {
   }
 
   static cudaError_t prepare(const cudaLaunchConfig_t& cfg) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel(), cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(cfg.dynamicSmemBytes));
-    if (err != cudaSuccess || HELIB_CONV_CARVEOUT < 0) return err;
     return cudaFuncSetAttribute(kernel(),
-                                cudaFuncAttributePreferredSharedMemoryCarveout,
-                                HELIB_CONV_CARVEOUT);
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(cfg.dynamicSmemBytes));
   }
 
   static int launch(const void* x, void* out, long long rows, int log_n,

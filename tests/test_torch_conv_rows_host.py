@@ -4,9 +4,9 @@ stand-in for the CUDA runtime and cooperative groups (below), each CTA's
 threads as std::threads, __syncthreads() and cluster.sync() as
 std::barriers, a cluster's distributed shared memory as its CTAs' buffers.
 Their C entries are called with CPU tensors and held bit for bit to
-conv_plain / conv_aux_plain, under the shipped configuration and under the
-occupancy candidates of conv_rows.cuh (threads a CTA, a 2-CTA cluster, the
-unsplit cross composite).  The kernels' lazy arithmetic, schedule, row
+conv_plain / conv_aux_plain: the shipped entries, and the template under
+other configurations (threads a CTA, a 2-CTA cluster) through the test's own
+entries (HARNESS_CU).  The kernels' lazy arithmetic, schedule, row
 maps and cluster offsets are exercised as the card runs them; what only
 the card can show (the compiler's output, timing) is left to
 test_torch_cuda.py and chip_smoke.py."""
@@ -50,11 +50,7 @@ struct dim3 {
 };
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 typedef void* cudaStream_t;
-enum cudaFuncAttribute {
-  cudaFuncAttributeMaxDynamicSharedMemorySize,
-  cudaFuncAttributePreferredSharedMemoryCarveout
-};
-enum { cudaSharedmemCarveoutMaxShared = 100 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
 struct cudaLaunchAttribute {
   cudaLaunchAttributeID id;
@@ -157,22 +153,73 @@ inline cluster_group this_cluster() { return {}; }
 # the one line of device code the stand-in cannot take as it is
 SHARED_DECL = "extern __shared__ uint32_t s[];"
 
-# (label, macros): the shipped configuration and the candidates
-VARIANTS = [
-    ("shipped", ()),
-    ("threads64", ("HELIB_CONV_THREADS=64", "HELIB_CONV_CLUSTER_THREADS=64")),
-    ("cluster2", ("HELIB_CONV_CLUSTER=2", "HELIB_CONV_CLUSTER_THREADS=128")),
-    ("unsplit", ("HELIB_CONV_SPLIT=0", "HELIB_CONV_CLUSTER_THREADS=128")),
-]
+# Entries of the template under configurations the sources do not ship,
+# with helib_conv_launch's signature: one CTA a row below n = 65536, a
+# cluster a row at n = 65536.
+HARNESS_CU = r"""
+#include "conv_rows.cuh"
+
+#define CONV_ARGS                                                         \
+  const void *x, void *out, long long rows, int log_n, int P,             \
+      const void *tw, const void *tw_sh, const void *itw,                 \
+      const void *itw_sh, const void *khat, const void *khat_sh,          \
+      const void *aux_q, void *stream
+#define CONV_NAMES \
+  x, out, rows, log_n, P, tw, tw_sh, itw, itw_sh, khat, khat_sh, aux_q
+
+template <class Map, int kThreads, int kCluster, int kClusterThreads>
+int run(CONV_ARGS) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (log_n == 16)
+    return helib::ConvRows<Map, kCluster, kClusterThreads, 1>::launch(
+        CONV_NAMES, s);
+  return helib::ConvRows<Map, 1, kThreads, 1>::launch(CONV_NAMES, s);
+}
+
+extern "C" {
+int conv_threads64(CONV_ARGS) {
+  return run<helib::RowMajor, 64, 4, 64>(CONV_NAMES, stream);
+}
+int conv_aux_threads64(CONV_ARGS) {
+  return run<helib::AuxMajor, 64, 4, 64>(CONV_NAMES, stream);
+}
+int conv_aux_cluster2(CONV_ARGS) {
+  return run<helib::AuxMajor, helib::kRowThreads, 2, 128>(CONV_NAMES,
+                                                          stream);
+}
+}
+"""
+
+# (source, label) -> (library, C entry)
+ENTRIES = {
+    ("conv", "shipped"): ("conv", "helib_conv_launch"),
+    ("conv", "threads64"): ("harness", "conv_threads64"),
+    ("conv_aux", "shipped"): ("conv_aux", "helib_conv_aux_launch"),
+    ("conv_aux", "threads64"): ("harness", "conv_aux_threads64"),
+    ("conv_aux", "cluster2"): ("harness", "conv_aux_cluster2"),
+    ("conv_aux", "c2_entry"): ("conv_aux", "helib_conv_aux_launch_c2"),
+}
+
+PROBE_CC = "#include <barrier>\n#include <thread>\nint main() {}\n"
+
+
+def _gxx(gxx, inc, src, out, *extra):
+    return [gxx, "-std=c++20", "-O1", "-pthread", "-w", "-I", str(inc),
+            *extra, "-x", "c++", str(src), "-o", str(out)]
 
 
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
-    """{(source, variant): the library built by g++ from the sources}."""
+    """{(source, label): the C entry of the library g++ built}."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ (C++20) to build the kernel sources")
     root = tmp_path_factory.mktemp("conv_rows_host")
+    probe = root / "probe.cc"
+    probe.write_text(PROBE_CC)
+    if subprocess.run(_gxx(gxx, root, probe, root / "probe"),
+                      capture_output=True).returncode != 0:
+        pytest.skip("needs a g++ with C++20's <barrier> and <thread>")
     inc = root / "include"
     inc.mkdir()
     (inc / "cuda_runtime.h").write_text(CUDA_RUNTIME_H)
@@ -185,24 +232,21 @@ def libs(tmp_path_factory):
             assert text.count(SHARED_DECL) == 1
             text = text.replace(SHARED_DECL, "uint32_t* s = stub::smem();")
         (src / name).write_text(text)
+    (src / "harness.cu").write_text(HARNESS_CU)
     jobs = {}
-    for name in ("conv", "conv_aux"):
-        for label, macros in VARIANTS:
-            if name == "conv" and label != "shipped" and label != "threads64":
-                continue
-            so = root / f"lib{name}_{label}.so"
-            cmd = [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-                   "-w", "-I", str(inc), "-x", "c++", str(src / f"{name}.cu"),
-                   "-o", str(so)] + [f"-D{m}" for m in macros]
-            jobs[name, label] = (so, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True))
-    out = {}
-    for key, (so, proc) in jobs.items():
+    for name in ("conv", "conv_aux", "harness"):
+        so = root / f"lib{name}.so"
+        jobs[name] = (so, subprocess.Popen(
+            _gxx(gxx, inc, src / f"{name}.cu", so, "-shared", "-fPIC"),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    built = {}
+    for name, (so, proc) in jobs.items():
         log, _ = proc.communicate(timeout=600)
-        assert proc.returncode == 0, f"g++ {key}:\n{log}"
-        lib = ctypes.CDLL(str(so))
-        fn = getattr(lib, f"helib_{key[0]}_launch")
+        assert proc.returncode == 0, f"g++ {name}.cu:\n{log}"
+        built[name] = ctypes.CDLL(str(so))
+    out = {}
+    for key, (name, entry) in ENTRIES.items():
+        fn = getattr(built[name], entry)
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 2 + [
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int] + [
@@ -247,12 +291,31 @@ def test_conv_source_on_host_matches_plain(libs, label, n, P, lead):
     assert torch.equal(_run(libs["conv", label], *args), conv_plain(*args))
 
 
-@pytest.mark.parametrize("label", [v for v, _ in VARIANTS])
+@pytest.mark.parametrize("label", ["shipped", "threads64", "cluster2"])
 @pytest.mark.parametrize("n,P,lead", [(256, 3, (2,)), (65536, 1, ())])
 def test_conv_aux_source_on_host_matches_plain(libs, label, n, P, lead):
     """K3 (aux-major): one CTA a row at n = 256, the cluster at n = 65536
-    (4 CTAs shipped; 2 CTAs and the unsplit cross composite as
-    candidates)."""
+    (4 CTAs shipped; 64 threads a CTA, and 2-CTA clusters of 128
+    threads)."""
     args = _args(n, P, lead, seed=n + P + 1, aux_major=True)
     assert torch.equal(_run(libs["conv_aux", label], *args),
                        conv_aux_plain(*args))
+
+
+def test_conv_aux_c2_entry_on_host_matches_plain(libs):
+    """helib_conv_aux_launch_c2: K3's 2-CTA clusters of 1024 threads, as
+    chip_smoke.py holds them on the card."""
+    args = _args(65536, 1, (), seed=65538, aux_major=True)
+    assert torch.equal(_run(libs["conv_aux", "c2_entry"], *args),
+                       conv_aux_plain(*args))
+
+
+@pytest.mark.parametrize("entry,n,rows", [("shipped", 256, 4),
+                                          ("c2_entry", 256, 3),
+                                          ("c2_entry", 65536, 4)])
+def test_conv_aux_entry_rejects_bad_shapes(libs, entry, n, rows):
+    """A row count that is not a multiple of 3, or a size the 2-CTA entry
+    does not run, is an invalid value (1) and launches nothing."""
+    null = [None] * 7
+    assert libs["conv_aux", entry](None, None, rows, n.bit_length() - 1, 1,
+                                   *null, None) == 1

@@ -17,8 +17,9 @@ import torch
 from helib_tpu_torch.context import Context
 from helib_tpu_torch.keys import SecKey
 from helib_tpu_torch.ops import ntt
-from helib_tpu_torch.ops.conv import (conv, conv_cuda, conv_plain, conv_aux,
-                                      conv_aux_cuda, conv_aux_plain)
+from helib_tpu_torch.ops.conv import (AUX_MAX_LOG_N, conv, conv_cuda,
+                                      conv_plain, conv_aux, conv_aux_cuda,
+                                      conv_aux_plain, launch_rows)
 from helib_tpu_torch.ops import ntt_fused, ntt2, probes
 from helib_tpu_torch.nt.primegen import gen_primes
 from helib_tpu_torch.ops.modops import shoup, to_device
@@ -110,6 +111,21 @@ def test_conv_aux_kernel_matches_plain_on_gpu(gpu, n, P, lead):
     torch.cuda.synchronize()
     assert conv_aux_cuda.launches == before + 1
     assert torch.equal(got, conv_aux_plain(x, aux, kh, khsh))
+
+
+@pytest.mark.parametrize("P,lead", SHAPES)
+def test_conv_aux_c2_entry_matches_plain_on_gpu(gpu, P, lead):
+    """conv_aux.cu's second entry: n = 65536 on 2-CTA clusters; any other
+    n is an invalid value."""
+    x, aux, kh, khsh = _conv_args(65536, P, seed=P + 3, dev=gpu, lead=lead)
+    x = x.movedim(len(lead), 0).contiguous()
+    got = launch_rows("conv_aux", x, aux, kh, khsh, AUX_MAX_LOG_N,
+                      entry="launch_c2")
+    assert torch.equal(got, conv_aux_plain(x, aux, kh, khsh))
+    args = _conv_args(32768, P, seed=P, dev=gpu)
+    with pytest.raises(RuntimeError, match="invalid"):
+        launch_rows("conv_aux", args[0].movedim(1, 0).contiguous(),
+                    *args[1:], AUX_MAX_LOG_N, entry="launch_c2")
 
 
 @pytest.mark.parametrize("n", [48, 4, 131072])
