@@ -84,6 +84,8 @@ M, P_PLAIN, BITS, C, BATCH, SEED = 8009, 2, 380, 3, 16, 3
 # HElib's largest ckks_basic size, as benchmarks/bench_suite.py times it
 CKKS = dict(m=65536, p=-1, r=30, bits=440, c=3, scheme="ckks")
 CKKS_SEED = 2
+# the same parameters at m=131072 (N = 65536): K2 at n = 65536
+CKKS_BIG = {**CKKS, "m": 131072}
 CKKS_TOL = 1e-2          # decrypted product vs numpy (test_ckks_large.py)
 # HElib's bgv_basic "big" size (benchmarks/bench_suite.py:42-45), unbatched
 BIG = dict(m=32003, p=2, r=1, bits=5800, c=3)
@@ -141,13 +143,16 @@ def conv_inputs(n: int, P: int, lead: tuple, seed: int, dev):
             to_device(kh, dev), to_device(khsh, dev))
 
 
+CONV_SIZES = (8, 64, 2048, 4096, 8192, 16384, 32768)
+
+
 def check_conv(dev) -> tuple[int, int]:
     """K1 vs conv_plain and vs K5 at k = 3 (the same schedule), bit for
     bit; returns (rows compared, max err)."""
     from helib_tpu_torch.ops.conv import conv_cuda, conv_plain
     from helib_tpu_torch.ops.ntt2 import conv2_cuda
     rows, err = 0, 0
-    for n in (8, 64, 2048, 4096, 8192, 16384, 32768):
+    for n in CONV_SIZES:
         for P in (5, 13):
             args = conv_inputs(n, P, (2,), seed=n + P, dev=dev)
             got = conv_cuda(*args)
@@ -222,12 +227,16 @@ def ntt_inputs(n: int, P: int, lead: tuple, seed: int, dev):
     return to_device(x.astype(np.uint32), dev), t
 
 
+NTT_SIZES = (8, 64, 2048, 4096, 8192, 16384, 32768, 65536)
+
+
 def check_ntt(dev) -> tuple[int, int]:
-    """Kernel vs ntt_plain, both directions, bit for bit; returns (rows
-    compared, max err)."""
+    """K2 vs ntt_plain, both directions, bit for bit, at every size (so on
+    every shipped configuration: one CTA a row, n = 32768's, the 4-CTA
+    cluster at n = 65536); returns (rows compared, max err)."""
     from helib_tpu_torch.ops.ntt_fused import ntt_cuda, ntt_plain
     rows, err = 0, 0
-    for n in (8, 64, 2048, 4096, 8192, 16384, 32768):
+    for n in NTT_SIZES:
         for P in (5, 20):
             x, t = ntt_inputs(n, P, (2,), seed=n + P, dev=dev)
             for inverse in (False, True):
@@ -243,20 +252,18 @@ def check_ntt(dev) -> tuple[int, int]:
     return rows, err
 
 
-V2_SIZES = (8, 64, 2048, 4096, 8192, 16384, 32768)
-
-
 def check_ntt2(dev) -> tuple[int, int]:
     """K4 vs ntt2_plain and K2's ntt_plain at every k, both directions, bit
-    for bit; returns (rows compared, max err)."""
+    for bit, and equal to K2 at k = 3; returns (rows compared, max err)."""
     from helib_tpu_torch.ops.ntt2 import K_MAX, ntt2_cuda, ntt2_plain
-    from helib_tpu_torch.ops.ntt_fused import ntt_plain
+    from helib_tpu_torch.ops.ntt_fused import ntt_cuda, ntt_plain
     rows, err = 0, 0
-    for n in V2_SIZES:
+    for n in NTT_SIZES:
         for P in (5, 20):
             x, t = ntt_inputs(n, P, (2,), seed=n + P + 2, dev=dev)
             for inverse in (False, True):
                 ref = ntt_plain(x, t, inverse)
+                k2 = ntt_cuda(x, t["flat"], t["q"], inverse)
                 for k in range(1, K_MAX + 1):
                     got = ntt2_cuda(x, t["flat"], t["q"], inverse, k)
                     own = ntt2_plain(x, t["flat"], t["q"], inverse, k)
@@ -264,7 +271,8 @@ def check_ntt2(dev) -> tuple[int, int]:
                     e = int((got.long() - ref.long()).abs().max())
                     err = max(err, e)
                     if e or not (torch.equal(got, ref)
-                                 and torch.equal(got, own)):
+                                 and torch.equal(got, own)
+                                 and (k < K_MAX or torch.equal(got, k2))):
                         raise AssertionError(f"ntt2 kernel != plain at n={n}"
                                              f" P={P} k={k} "
                                              f"inverse={inverse}")
@@ -278,7 +286,7 @@ def check_conv2(dev) -> tuple[int, int]:
     from helib_tpu_torch.ops.conv import conv_plain
     from helib_tpu_torch.ops.ntt2 import K_MAX, conv2_cuda, conv2_plain
     rows, err = 0, 0
-    for n in V2_SIZES:
+    for n in CONV_SIZES:
         for P in (5, 20):
             args = conv_inputs(n, P, (2,), seed=n + P + 3, dev=dev)
             ref = conv_plain(*args)
@@ -368,11 +376,14 @@ def expect_only(launches: dict, name: str, what: str):
                              f"kernel: {launches}")
 
 
-def check_outputs(out, ctx, batch: int, dev):
-    """int32 residues of shape [batch, L, N], each below its prime."""
+def check_outputs(out, ctx, batch: int | None, dev):
+    """int32 residues of shape [batch, L, N] ([L, N] for batch None), each
+    below its prime."""
     q = torch.from_numpy(ctx.qs.astype(np.int64)).to(dev)[:, None]
+    shape = (ctx.L, ctx.n_eval) if batch is None else (batch, ctx.L,
+                                                       ctx.n_eval)
     for o in out:
-        if o.shape != (batch, ctx.L, ctx.n_eval) or o.dtype != torch.int32:
+        if o.shape != shape or o.dtype != torch.int32:
             raise AssertionError(f"bad output {o.shape} {o.dtype}")
         if bool(((o < 0) | (o.long() >= q)).any()):
             raise AssertionError("output residues out of range")
@@ -450,7 +461,12 @@ def main_path(dev):
 # the CKKS path (K2)
 # ---------------------------------------------------------------------------
 
-def ckks_path(dev):
+def ckks_path(dev, params: dict = CKKS, batch: int | None = BATCH,
+              scales: tuple = (CKKS["r"], 40), label: str = "ckks path"):
+    """The CKKS mult+relin at `params` (batched, or unbatched for batch
+    None) through K2 alone; element 0 held to the plain-NTT chain and to the
+    port on the host CPU; the decrypt oracle at each scale 2^b of
+    `scales`."""
     from helib_tpu_torch.context import Context
     from helib_tpu_torch.keys import SecKey, SKHandle
     from helib_tpu_torch.ctxt import Ctxt
@@ -461,54 +477,58 @@ def ckks_path(dev):
     from helib_tpu_torch.ops import ntt_fused
 
     t0 = time.time()
-    ctx = Context(**CKKS, device=dev)
+    ctx = Context(**params, device=dev)
     sk = SecKey(ctx, seed=CKKS_SEED)
-    fn, args = make_batched_mult_relin(ctx, sk, BATCH)
+    fn, args = (make_mult_relin(ctx, sk) if batch is None
+                else make_batched_mult_relin(ctx, sk, batch))
     torch.cuda.synchronize()
-    print(f"ckks path: {ctx!r}; setup {time.time() - t0:.1f} s")
+    print(f"{label}: {ctx!r}; setup {time.time() - t0:.1f} s")
 
     reset_launches()
     out = fn(*args)
     torch.cuda.synchronize()
     launches = read_launches()
-    print(f"ckks path: one batched call launched {launches}")
-    expect_only(launches, "ntt", "CKKS path")
-    check_outputs(out, ctx, BATCH, dev)
+    print(f"{label}: one {'un' if batch is None else ''}batched call "
+          f"launched {launches}")
+    expect_only(launches, "ntt", label)
+    check_outputs(out, ctx, batch, dev)
+    one = list(args) if batch is None else [a[0] for a in args]
+    first = list(out) if batch is None else [o[0] for o in out]
 
     # the same chain on batch element 0 with the plain NTT
     pk = sk.pubkey
     with swap(ntt_fused, "ntt", ntt_fused.ntt_plain):
         before = read_launches()
-        ref = mult_relin(ctx, pk, sk, fresh_noise(ctx, pk), ctx.L,
-                         *[a[0] for a in args])
+        ref = mult_relin(ctx, pk, sk, fresh_noise(ctx, pk), ctx.L, *one)
         torch.cuda.synchronize()
         if read_launches() != before:
             raise AssertionError("reference run launched a kernel")
     ref = dict((h.powS, d) for h, d in ref.parts)
     for i in (0, 1):
-        if not torch.equal(out[i][0], ref[i]):
+        if not torch.equal(first[i], ref[i]):
             raise AssertionError(f"part {i}: kernel path != plain path")
-    print("ckks path: batch element 0 bit-identical to the plain-NTT chain")
+    print(f"{label}: batch element 0 bit-identical to the plain-NTT chain")
 
     # the same element through the port on the host CPU
     t0 = time.time()
-    ctx_cpu = Context(**CKKS, device="cpu")
+    ctx_cpu = Context(**params, device="cpu")
     fn_cpu, _ = make_mult_relin(ctx_cpu, SecKey(ctx_cpu, seed=CKKS_SEED))
-    host = fn_cpu(*[a[0].cpu() for a in args])
+    host = fn_cpu(*[a.cpu() for a in one])
     for i in (0, 1):
-        if not torch.equal(out[i][0].cpu(), host[i]):
+        if not torch.equal(first[i].cpu(), host[i]):
             raise AssertionError(f"part {i}: GPU != CPU port")
-    print(f"ckks path: batch element 0 bit-identical to the port on the "
-          f"host CPU at m={CKKS['m']} ({time.time() - t0:.1f} s)")
+    print(f"{label}: batch element 0 bit-identical to the port on the "
+          f"host CPU at m={params['m']} ({time.time() - t0:.1f} s)")
+    del ctx_cpu, fn_cpu, host
 
     # decrypt oracle on the timed function: encrypt two slot vectors, run
     # them through fn, wrap as a Ctxt with scale f1*f2, rescale, decrypt.
     # The mitigated decrypt releases an error of about error_bound(), which
-    # at the default scale 2^r = 2^30 is ~0.04 here: that run is held to
-    # 4 x error_bound; a run at scale 2^40 is also held to CKKS_TOL.
+    # at the default scale 2^r = 2^30 is ~0.04 at m=65536: that run is held
+    # to 4 x error_bound; a run at scale 2^40 is also held to CKKS_TOL.
     ea = EncryptedArrayCKKS(ctx)
     rng = np.random.default_rng(CKKS_SEED + 1)
-    for scale_bits in (CKKS["r"], 40):
+    for scale_bits in scales:
         zs = [rng.uniform(-1, 1, ea.nslots)
               + 1j * rng.uniform(-1, 1, ea.nslots) for _ in range(2)]
         cts = [ea.encrypt(z, pk, rng, scale=1 << scale_bits) for z in zs]
@@ -532,12 +552,35 @@ def ckks_path(dev):
         err = float(np.max(np.abs(got - zs[0] * zs[1])))
         bound = prod.error_bound()
         tol = min(4 * bound, CKKS_TOL) if scale_bits == 40 else 4 * bound
-        print(f"ckks path: decrypt oracle at scale 2^{scale_bits}: max "
+        print(f"{label}: decrypt oracle at scale 2^{scale_bits}: max "
               f"|err| = {err:.3e}, error_bound = {bound:.3e}, limit "
               f"{tol:.3e} ({ea.nslots} slots, rescaled to k={prod.k})")
         if not err <= tol:
             raise AssertionError("decrypt oracle: product outside tolerance")
     return fn, args, launches, ctx, sk
+
+
+def ckks_big_path(dev, card: str) -> dict:
+    """CKKS at m=131072 (n = 65536, K2 on 4-CTA clusters), unbatched: the
+    checks of ckks_path with the decrypt oracle at scale 2^40, then ms per
+    call, K2's row on the path's inputs and the clusters resident."""
+    from helib_tpu_torch.ops.ntt_fused import ntt_max_clusters
+    torch.cuda.reset_peak_memory_stats()
+    fn, args, launches, ctx, sk = ckks_path(
+        dev, CKKS_BIG, batch=None, scales=(40,), label="ckks m=131072")
+    ms = host_ms(lambda: chain(fn, args, 5), 2) / 5
+    row = kernel_row(fn, args, launches, "ntt")
+    clusters = ntt_max_clusters(dev, 16)
+    print(json.dumps({
+        "metric": "torch_cuda_ckks_mult_relin_ms_m131072_b440",
+        "ms_per_unbatched_call": ms, "kernel": "ntt",
+        "kernel_ms_per_launch": row["ms"], "kernel_bound_ms": row["bound_ms"],
+        "kernel_plain_ms": row["plain_ms"],
+        "kernel_launches_per_call": row["launches"],
+        "ntt_clusters_resident_n65536": clusters,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+        "card": card}))
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -1178,6 +1221,107 @@ def beside(fn, args, name: str, label: str, other, card: str) -> dict:
     return ms
 
 
+# ---------------------------------------------------------------------------
+# the occupancy candidates of K2 at n = 32768 (--ntt-candidates)
+# ---------------------------------------------------------------------------
+
+# which -> (CTAs a row, threads a CTA, minimum CTAs an SM); 0 is the staged
+# radix-2 kernel K2 ran before (csrc/ntt_candidates.cu)
+NTT_CANDIDATES = {0: ("staged", 512, 1), 1: (1, 512, 1), 2: (1, 1024, 1),
+                  3: (1, 512, 2), 4: (2, 256, 3), 5: (2, 512, 3),
+                  6: (2, 512, 2), 7: (2, 1024, 1), 8: (4, 256, 3),
+                  9: (4, 256, 4), 10: (4, 128, 6), 11: (4, 512, 2),
+                  12: (4, 256, 6)}
+
+
+def ntt_candidates(dev, card: str):
+    """Each candidate on the CKKS m=65536 batch-16 path's own K2 inputs:
+    held to ntt_plain bit for bit on each, then timed (mean ms a launch
+    over the path's launches, CUDA events behind the sleep kernel) in two
+    rounds in opposite orders, forward and inverse apart, beside the
+    shipped K2 and the CTAs or clusters resident."""
+    import ctypes
+    from helib_tpu_torch.context import Context
+    from helib_tpu_torch.keys import SecKey
+    from helib_tpu_torch.pipeline import make_batched_mult_relin
+    from helib_tpu_torch.ops import _build, ntt_fused
+    t0 = time.time()
+    _build.build("ntt_candidates")
+    print(f"candidates: ntt_candidates.cu built in {time.time() - t0:.1f} s")
+    for line in ptxas_summary(_build.ptxas_log.get("ntt_candidates", "")):
+        print(f"  ntt_candidates.cu {line}")
+    lib = _build.load("ntt_candidates")
+
+    ctx = Context(**CKKS, device=dev)
+    fn, args = make_batched_mult_relin(ctx, SecKey(ctx, seed=CKKS_SEED),
+                                       BATCH)
+    with capture(ntt_fused, "ntt") as cap:
+        fn(*args)
+    torch.cuda.synchronize()
+    calls = [(x.contiguous(), t, inv) for x, t, inv in cap.calls]
+    print(f"candidates: {len(calls)} K2 inputs "
+          f"{[(tuple(x.shape), inv) for x, _, inv in calls]}")
+
+    def run(which, x, t, inv):
+        n, P = x.shape[-1], x.shape[-2]
+        keys = ("itw_all", "itw_all_sh") if inv else ("tw_all", "tw_all_sh")
+        out = torch.empty_like(x)
+        _build.launch("ntt_candidates", dev, ctypes.c_int(which), x, out,
+                      ctypes.c_longlong(x.numel() // n),
+                      ctypes.c_int(n.bit_length() - 1), ctypes.c_int(P),
+                      *[t["flat"][k] for k in keys], t["q"],
+                      ctypes.c_int(int(inv)))
+        return out
+
+    kinds = {w: (lambda a, w=w: run(w, *a)) for w in NTT_CANDIDATES}
+    kinds["shipped"] = lambda a: ntt_fused.ntt_cuda(a[0], a[1]["flat"],
+                                                    a[1]["q"], a[2])
+    for name, f in kinds.items():
+        for a in calls:
+            if not torch.equal(f(a), ntt_fused.ntt_plain(*a)):
+                raise AssertionError(f"candidate {name} != ntt_plain on "
+                                     f"{tuple(a[0].shape)} inverse={a[2]}")
+    print(f"candidates: all {len(kinds)} == ntt_plain bit for bit on the "
+          f"path's inputs")
+    ms = {name: {"fwd": [], "inv": []} for name in kinds}
+    names = list(kinds)
+    for order in (names, names[::-1]):
+        for name in order:
+            for d, inv in (("fwd", False), ("inv", True)):
+                sel = [a for a in calls if a[2] == inv]
+                ms[name][d].append(sum(event_ms(lambda: kinds[name](a))
+                                       for a in sel) / len(sel))
+    resident = {}
+    for w in NTT_CANDIDATES:
+        if w:
+            c = ctypes.c_int(0)
+            err = lib.helib_ntt_candidates_resident(ctypes.c_int(w),
+                                                    ctypes.c_int(15),
+                                                    ctypes.byref(c))
+            resident[w] = c.value if err == 0 else f"error {err}"
+    nf = sum(1 for a in calls if not a[2])
+    for name in names:
+        mean = {d: sum(v) / len(v) for d, v in ms[name].items()}
+        path = (nf * mean["fwd"] + (len(calls) - nf) * mean["inv"]) \
+            / len(calls)
+        cfg = NTT_CANDIDATES.get(name, "shipped")
+        print(f"candidates: {str(name):8s} {str(cfg):18s} path "
+              f"{path:.5f} fwd "
+              f"{mean['fwd']:.5f} ({ms[name]['fwd'][0]:.5f}, "
+              f"{ms[name]['fwd'][1]:.5f}) inv {mean['inv']:.5f} "
+              f"({ms[name]['inv'][0]:.5f}, {ms[name]['inv'][1]:.5f}) ms, "
+              f"resident {resident.get(name, '-')}")
+    print(json.dumps({"metric": "torch_cuda_ntt_candidates_ms_n32768",
+                      "configs": {str(k): v for k, v in
+                                  NTT_CANDIDATES.items()},
+                      "ms": ms, "resident": resident,
+                      "launches_fwd_inv": [nf, len(calls) - nf],
+                      "card": card}))
+
+
+MODES = {0: "conv", 1: "forward", 2: "inverse"}   # ntt_rows.cuh Mode
+
+
 def ptxas_summary(log: str) -> list:
     """One line per kernel of nvcc's -Xptxas -v report: name and template
     arguments, registers, stack frame and spills."""
@@ -1185,11 +1329,14 @@ def ptxas_summary(log: str) -> list:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            k = re.search(r"\d((?:conv_rows|conv_aux|conv2|ntt2|conv|ntt|p1|"
-                          r"p2)_kernel)(?:I(.*?)EE)?", m.group(1))
+            k = re.search(r"\d((?:ntt_rows|staged|p1|p2)_kernel)",
+                          m.group(1))
+            targs = m.group(1)[k.end(1):] if k else ""
             name = m.group(1) if k is None else k.group(1) + "<" + ",".join(
-                re.findall(r"(RowMajor|AuxMajor)", k.group(2) or "")
-                + re.findall(r"L[a-z](\d+)", k.group(2) or "")) + ">"
+                re.findall(r"(RowMajor|AuxMajor|PrimeRows)", targs)
+                + [MODES[int(v)] for v in re.findall(
+                    r"LN(?:5helib|S_)4ModeE(\d+)E", targs)]
+                + re.findall(r"L[bi](\d+)E", targs)) + ">"
             cur = {"name": name}
             out.append(cur)
             continue
@@ -1247,6 +1394,9 @@ def main() -> int:
     print(f"kernels: conv2 == conv2_plain == conv_plain bit for bit on "
           f"{rows} rows (n = 8 .. 32768, P = 5 and 20, every k, "
           f"max |err| = {err})")
+    if "--ntt-candidates" in sys.argv:
+        ntt_candidates(dev, card)
+        return 0
 
     fn, args, launches = main_path(dev)
     kernels = {"conv": measure(
@@ -1266,6 +1416,12 @@ def main() -> int:
         fn, args, launches, "ntt",
         "torch_cuda_ckks_mult_relin_ops_per_s_m65536_b440_batch16", "ckks",
         card)
+    from helib_tpu_torch.ops.ntt2 import ntt2_cuda
+    from helib_tpu_torch.ops.ntt_fused import ntt_max_clusters
+    beside(fn, args, "ntt", "ntt2_k3", lambda x, t, inv: ntt2_cuda(
+        x.contiguous(), t["flat"], t["q"], inv, 3), card)
+    print(f"ckks path: K2's n = 32768 kernel: {ntt_max_clusters(dev, 15)} "
+          f"clusters resident at once")
     kernels["ntt2"] = v2_path(
         fn, args, "ntt2", "ntt", "ckks",
         "torch_cuda_ckks_mult_relin_v2_ops_per_s_m65536_b440_batch16", card)
@@ -1273,6 +1429,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     rotation_path(ctx, sk, card)
     del ctx, sk
+    torch.cuda.empty_cache()
+    ckks_big_path(dev, card)
     torch.cuda.empty_cache()
 
     kernels["conv_aux"] = perop_path(dev, card)

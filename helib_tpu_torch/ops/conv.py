@@ -11,10 +11,10 @@ prime, fully reduced, on one of two layouts:
 Each has two versions of one function:
 
   * `conv_cuda` / `conv_aux_cuda` -- the hand-written CUDA kernels
-    (csrc/conv.cu, csrc/conv_aux.cu), two instantiations of one device
-    template (csrc/conv_rows.cuh): register composites under ops/ntt2.py's
-    schedule, one CTA a row with the row in shared memory, and for K3 at
-    n = 65536 a thread-block cluster a row;
+    (csrc/conv.cu, csrc/conv_aux.cu), two instantiations of the device
+    template of the NTT family (csrc/ntt_rows.cuh): register composites
+    under ops/ntt2.py's schedule, one CTA a row with the row in shared
+    memory, and for K3 at n = 65536 a thread-block cluster a row;
   * `conv_plain` / `conv_aux_plain` -- the staged torch composition
     ntt_pow2_fwd -> Shoup multiply by khat -> ntt_pow2_inv
     (helib_tpu/ops/ntt.py:535-537), the reference each kernel is held to
@@ -30,18 +30,14 @@ branch is taken before v2 is read.
 
 from __future__ import annotations
 
-import ctypes
-
-import torch
-
-from ._build import check_tensors, launch, load
 from .modops import mul_mod_shoup
 from .ntt import ntt_pow2_fwd, ntt_pow2_inv
 from .ntt2 import ntt_v2, conv2_cuda, conv2_plain
+from . import rows
+from .rows import launch_rows, max_clusters
 
-MIN_LOG_N = 3    # B = 8 serves the smallest odd m (m = 3)
-MAX_LOG_N = 15    # 2^15 words = 128 KB of shared memory, within one CTA
-AUX_MAX_LOG_N = 16   # 2^16 words: a cluster of CTAs (conv_rows.cuh)
+MAX_LOG_N = rows.CTA_MAX_LOG_N    # K1: one CTA a row
+AUX_MAX_LOG_N = rows.MAX_LOG_N    # K3: a cluster of CTAs a row at 2^16
 
 
 def conv_plain(x, aux, khat, khat_sh):
@@ -50,30 +46,6 @@ def conv_plain(x, aux, khat, khat_sh):
     A = ntt_pow2_fwd(x, aux)
     Pr = mul_mod_shoup(A, khat, khat_sh, aux["q"])
     return ntt_pow2_inv(Pr, aux)
-
-
-def launch_rows(name: str, x, aux, khat, khat_sh, max_log_n: int,
-                entry: str = "launch"):
-    """Checks the tensors and launches helib_<name>_<entry> of
-    csrc/<name>.cu on x [..., n] (int32, contiguous, on the GPU); returns
-    the output.  The layout check is the caller's."""
-    n, P = x.shape[-1], x.shape[-2]
-    log_n = n.bit_length() - 1
-    if n != 1 << log_n or not MIN_LOG_N <= log_n <= max_log_n:
-        raise ValueError(f"{name} kernel: n={n} is not a power of two in "
-                         f"[2^{MIN_LOG_N}, 2^{max_log_n}]")
-    tabs = [aux["tw_all"], aux["tw_all_sh"], aux["itw_all"],
-            aux["itw_all_sh"]]
-    check_tensors(name, x.device,
-                  [("x", x, x.shape), ("khat", khat, (3, P, n)),
-                   ("khat_sh", khat_sh, (3, P, n)),
-                   ("aux q", aux["q"], (3, 1, 1))]
-                  + [("table", t, (3, n)) for t in tabs])
-    out = torch.empty_like(x)
-    launch(name, x.device, x, out, ctypes.c_longlong(x.numel() // n),
-           ctypes.c_int(log_n), ctypes.c_int(P), *tabs, khat, khat_sh,
-           aux["q"], entry=entry)
-    return out
 
 
 def conv_cuda(x, aux, khat, khat_sh):
@@ -131,11 +103,4 @@ def conv_aux(x, aux, khat, khat_sh):
 def conv_aux_max_clusters(device) -> int:
     """How many clusters of K3's n = 65536 kernel the card holds at once
     (cudaOccupancyMaxActiveClusters); 0 means it cannot launch."""
-    lib = load("conv_aux")
-    clusters = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        err = lib.helib_conv_aux_max_clusters(ctypes.byref(clusters))
-    if err != 0:
-        raise RuntimeError("conv_aux occupancy query failed: "
-                           + lib.helib_cuda_error_string(err).decode())
-    return clusters.value
+    return max_clusters("conv_aux", device)

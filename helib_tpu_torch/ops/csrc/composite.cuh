@@ -1,6 +1,5 @@
-// The v2 (block-list) schedule of the power-of-2 NTT on Hopper: the device
-// code of K4 and K5 (ntt2.cu), kept apart from common.cuh so that K1, K2
-// and K3 compile exactly as before.
+// The register composites of the power-of-2 NTT on Hopper: the device
+// helpers of the row template ntt_rows.cuh (K1 .. K5).
 //
 // A composite (s0, k) covers global stages [s0, s0 + k).  Its groups are
 // the 2^k words  base + t * L,  t < 2^k,  with L = n / 2^(s0 + k) and
@@ -8,7 +7,9 @@
 // (b, j0) = (g / L, g % L), so consecutive threads take consecutive j0 and
 // a warp reads 32 consecutive words whenever L >= 32.  One thread loads its
 // group into registers, runs the k levels there, and stores it back: one
-// barrier per composite instead of one per stage.
+// barrier per composite instead of one per stage.  Where L = 1 (the last
+// composite of a row) a group is 2^k consecutive words, which a thread moves
+// to and from device memory as 16-byte vectors (GlobalIO).
 //
 // Values inside a composite are Harvey-lazy, as the TPU kernel keeps them
 // (pallas_ntt2.py _fwd_composite / _inv_composite): forward levels take and
@@ -26,19 +27,11 @@
 
 #pragma once
 
+#include <cstddef>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace helib {
-
-constexpr int kMaxComposites = 16;
-
-// The host's schedule: composite c covers stages [s0[c], s0[c] + k[c]).
-struct Schedule {
-  int count;
-  int s0[kMaxComposites];
-  int k[kMaxComposites];
-};
 
 template <int V>
 struct IntC {
@@ -112,9 +105,87 @@ __device__ __forceinline__ void levels(uint32_t (&r)[1 << k], int s0, int b,
   }
 }
 
-// Runs composite (s0, k) over every group of the row, threads striding
-// over the groups: r[t] = load(word), body(r, b, base, log_l), then
-// store(word, r[t]) for word = base + t * L.
+// A group's words in shared memory, at the swizzled index.
+struct SmemIO {
+  uint32_t* s;
+
+  template <size_t N>
+  __device__ __forceinline__ void load(uint32_t (&r)[N], int base,
+                                       int log_l) const {
+#pragma unroll
+    for (int t = 0; t < static_cast<int>(N); ++t)
+      r[t] = s[swz(base + (t << log_l))];
+  }
+
+  template <size_t N>
+  __device__ __forceinline__ void store(const uint32_t (&r)[N], int base,
+                                        int log_l) const {
+#pragma unroll
+    for (int t = 0; t < static_cast<int>(N); ++t)
+      s[swz(base + (t << log_l))] = r[t];
+  }
+};
+
+// A group's words in device memory at p (16-byte aligned): with L = 1 the
+// group is N consecutive words, moved as 16-byte (N >= 4) or 8-byte
+// vectors; otherwise word by word, a warp's threads on consecutive words.
+struct GlobalIO {
+  template <size_t N>
+  __device__ __forceinline__ static void load(const uint32_t* __restrict__ p,
+                                              uint32_t (&r)[N], int base,
+                                              int log_l) {
+    if constexpr (N >= 4) {
+      if (log_l == 0) {
+        const uint4* v = reinterpret_cast<const uint4*>(p + base);
+#pragma unroll
+        for (int i = 0; i < static_cast<int>(N) / 4; ++i) {
+          const uint4 w = v[i];
+          r[4 * i] = w.x;
+          r[4 * i + 1] = w.y;
+          r[4 * i + 2] = w.z;
+          r[4 * i + 3] = w.w;
+        }
+        return;
+      }
+    } else if constexpr (N == 2) {
+      if (log_l == 0) {
+        const uint2 w = *reinterpret_cast<const uint2*>(p + base);
+        r[0] = w.x;
+        r[1] = w.y;
+        return;
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < static_cast<int>(N); ++t) r[t] = p[base + (t << log_l)];
+  }
+
+  template <size_t N>
+  __device__ __forceinline__ static void store(uint32_t* __restrict__ p,
+                                               const uint32_t (&r)[N],
+                                               int base, int log_l) {
+    if constexpr (N >= 4) {
+      if (log_l == 0) {
+        uint4* v = reinterpret_cast<uint4*>(p + base);
+#pragma unroll
+        for (int i = 0; i < static_cast<int>(N) / 4; ++i)
+          v[i] = make_uint4(r[4 * i], r[4 * i + 1], r[4 * i + 2],
+                            r[4 * i + 3]);
+        return;
+      }
+    } else if constexpr (N == 2) {
+      if (log_l == 0) {
+        *reinterpret_cast<uint2*>(p + base) = make_uint2(r[0], r[1]);
+        return;
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < static_cast<int>(N); ++t) p[base + (t << log_l)] = r[t];
+  }
+};
+
+// Runs composite (s0, k) over every group of a part of 2^log_n words,
+// threads striding over the groups: load(r, base, log_l), body(r, b, base,
+// log_l), store(r, base, log_l), where group word t is base + t * L.
 template <int k, class Load, class Body, class Store>
 __device__ __forceinline__ void for_each_group(int log_n, int s0, Load&& load,
                                                Body&& body, Store&& store) {
@@ -124,11 +195,9 @@ __device__ __forceinline__ void for_each_group(int log_n, int s0, Load&& load,
     const int b = g >> log_l;
     const int base = (b << (log_n - s0)) | (g & ((1 << log_l) - 1));
     uint32_t r[1 << k];
-#pragma unroll
-    for (int t = 0; t < (1 << k); ++t) r[t] = load(base + (t << log_l));
+    load(r, base, log_l);
     body(r, b, base, log_l);
-#pragma unroll
-    for (int t = 0; t < (1 << k); ++t) store(base + (t << log_l), r[t]);
+    store(r, base, log_l);
   }
 }
 

@@ -8,24 +8,26 @@
 // t = (r / P) mod 3 and reads spectral row r mod 3P of khat [3, P, n], so
 // khat is never broadcast over the batch in memory.
 //
-// The device code is conv_rows.cuh's template, instantiated with the
-// row-major map and one CTA a row (n <= 32768, the row in at most 128 KB of
-// dynamic shared memory).  Against a staged radix-2 network (a barrier after
-// each of the 2 log2 n stages): register composites of 3 levels under
-// ops/ntt2.py schedule(log_n, 3), 5 barriers a direction at n = 16384
-// instead of 14, the khat product fused between the last forward and the
-// first inverse composite -- K5's design, and K5's time.  Occupancy: 512
-// threads, at least 2 CTAs an SM (64 registers), the default carveout
-// (kRowThreads, kRowMinBlocks; PERF.md has the candidates tried).  The bound
-// is unchanged (chip_smoke.py conv_bound_ms): at n = 16384 the
-// 3 (n log2 n + 2n) 32-bit multiplies a row, not its 16n bytes.
+// The device code is ntt_rows.cuh's template in its convolution mode,
+// instantiated with the row-major map, composites of at most 3 levels and
+// one CTA a row (n <= 32768, the row in at most 128 KB of dynamic shared
+// memory).  Against a staged radix-2 network (a barrier after each of the
+// 2 log2 n stages): register composites of 3 levels under ops/ntt2.py
+// schedule(log_n, 3), 5 barriers a direction at n = 16384 instead of 14,
+// the khat product fused between the last forward and the first inverse
+// composite -- K5's design (K5 is the same instantiation at k <= 3,
+// ntt2.cu).  Occupancy: 512 threads, at least 2 CTAs an SM (64 registers),
+// the default carveout (kRowThreads, kRowMinBlocks; PERF.md has the
+// candidates tried).  The bound is unchanged (chip_smoke.py conv_bound_ms):
+// at n = 16384 the 3 (n log2 n + 2n) 32-bit multiplies a row, not its 16n
+// bytes.
 
-#include "conv_rows.cuh"
+#include "ntt_rows.cuh"
 
 namespace {
 
-using OneCta = helib::ConvRows<helib::RowMajor, 1, helib::kRowThreads,
-                               helib::kRowMinBlocks>;
+using OneCta = helib::Rows<helib::RowMajor, helib::kConv, helib::kMaxK, 1,
+                           helib::kRowThreads, helib::kRowMinBlocks>;
 
 }  // namespace
 

@@ -8,8 +8,8 @@
 // belongs to aux prime t = r / (rows / 3) and reads spectral row
 // t P + r mod P of khat [3, P, n].
 //
-// The device code is conv_rows.cuh's template, instantiated with the
-// aux-major map: one CTA a row up to n = 32768 (as K1), and at n = 65536 a
+// The device code is ntt_rows.cuh's template in its convolution mode,
+// instantiated with the aux-major map and composites of at most 3 levels: one CTA a row up to n = 32768 (as K1), and at n = 65536 a
 // cluster of 4 CTAs a row, each holding a 64 KB quarter in dynamic shared
 // memory.  Against a staged radix-2 network on a 2-CTA cluster (15 barriers
 // a direction in each CTA, and every CTA reading all of x for the stage
@@ -30,16 +30,17 @@
 // (chip_smoke.py conv_bound_ms): at n = 65536 the 16n bytes a row moves, not
 // its multiplies.
 
-#include "conv_rows.cuh"
+#include "ntt_rows.cuh"
 
 namespace {
 
-using OneCta = helib::ConvRows<helib::AuxMajor, 1, helib::kRowThreads,
-                               helib::kRowMinBlocks>;
-using Cluster =
-    helib::ConvRows<helib::AuxMajor, helib::kClusterSize,
-                    helib::kClusterThreads, helib::kClusterMinBlocks>;
-using Cluster2 = helib::ConvRows<helib::AuxMajor, 2, 1024, 1>;
+template <int kCluster, int kThreads, int kMinBlocks>
+using Conv = helib::Rows<helib::AuxMajor, helib::kConv, helib::kMaxK,
+                         kCluster, kThreads, kMinBlocks>;
+using OneCta = Conv<1, helib::kRowThreads, helib::kRowMinBlocks>;
+using Cluster = Conv<helib::kClusterSize, helib::kClusterThreads,
+                     helib::kClusterMinBlocks>;
+using Cluster2 = Conv<2, 1024, 1>;
 
 }  // namespace
 

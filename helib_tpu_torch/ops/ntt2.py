@@ -31,9 +31,10 @@ does not.
 Two versions of each function:
 
   * `ntt2_cuda` / `conv2_cuda` -- the hand-written CUDA kernels
-    (csrc/ntt2.cu, composite code in csrc/composite.cuh): one CTA per row,
-    the row in shared memory between composites, a composite's 2^k words
-    in one thread's registers;
+    (csrc/ntt2.cu): K2's and K1's instantiations of the row template
+    csrc/ntt_rows.cuh with composites of at most k levels (at k = 3 they
+    are K2's and K1's code), the row in shared memory between composites,
+    a composite's 2^k words in one thread's registers;
   * `ntt2_plain` / `conv2_plain` -- the same schedule in torch on the block
     list, with the fully reduced ops/modops arithmetic, so they equal
     ntt_fused.ntt_plain and conv.conv_plain bit for bit.
@@ -52,15 +53,13 @@ import os
 
 import torch
 
-from ._build import check_tensors, launch
 from .modops import add_mod, sub_mod, mul_mod_shoup
+from .rows import CTA_MAX_LOG_N, launch_ntt, launch_rows
 
 # The largest composite: 2^3 words a thread.  The CUDA kernels are built for
 # k = 1 .. K_MAX; on the H100, k = 3 beat k = 4 and 5 on both batched paths
 # (PERF.md).
 K_MAX = 3
-MIN_LOG_N = 3
-MAX_LOG_N = 15     # 2^15 words = 128 KB of shared memory, within one CTA
 
 
 def phase_schedule(start: int, stop: int, max_k: int | None = None):
@@ -194,41 +193,16 @@ def conv2_plain(x, aux, khat, khat_sh, max_k: int = K_MAX):
 # the CUDA kernels
 # ---------------------------------------------------------------------------
 
-def _sched_arg(log_n: int, max_k: int):
-    """The schedule as the kernel takes it: count, then (s0, k) pairs."""
-    sched = schedule(log_n, max_k)
-    flat = [v for sk in sched for v in sk]
-    return (ctypes.c_int * len(flat))(*flat), ctypes.c_int(len(sched))
-
-
-def _check_n(kernel: str, n: int, max_k: int) -> int:
-    log_n = n.bit_length() - 1
-    if n != 1 << log_n or not MIN_LOG_N <= log_n <= MAX_LOG_N:
-        raise ValueError(f"{kernel} kernel: n={n} is not a power of two in "
-                         f"[2^{MIN_LOG_N}, 2^{MAX_LOG_N}]")
+def _check_k(kernel: str, max_k: int) -> None:
     if not 1 <= max_k <= K_MAX:
         raise ValueError(f"{kernel} kernel: k={max_k} outside 1..{K_MAX}")
-    return log_n
 
 
 def ntt2_cuda(x, flat, q, inverse: bool, max_k: int = K_MAX):
-    """K4 on x [..., P, n] (int32, contiguous, on the GPU); flat:
-    Pow2NTT.flat() of the P primes as device tensors, q [P, 1]."""
-    if x.dim() < 2:
-        raise ValueError(f"ntt2 kernel: x must be [..., P, n], got "
-                         f"{tuple(x.shape)}")
-    n, P = x.shape[-1], x.shape[-2]
-    log_n = _check_n("ntt2", n, max_k)
-    keys = ("itw_all", "itw_all_sh") if inverse else ("tw_all", "tw_all_sh")
-    tabs = [flat[k] for k in keys]
-    check_tensors("ntt2", x.device,
-                  [("x", x, x.shape), ("q", q, (P, 1))]
-                  + [(k, t, (P, n)) for k, t in zip(keys, tabs)])
-    out = torch.empty_like(x)
-    launch("ntt2", x.device, ctypes.c_int(0), x, out,
-           ctypes.c_longlong(x.numel() // n), ctypes.c_int(log_n),
-           ctypes.c_int(P), *tabs, None, None, None, None, q,
-           ctypes.c_int(int(inverse)), *_sched_arg(log_n, max_k))
+    """K4 on x [..., P, n] (int32, contiguous, on the GPU, n = 8 .. 65536);
+    flat: Pow2NTT.flat() of the P primes as device tensors, q [P, 1]."""
+    _check_k("ntt2", max_k)
+    out = launch_ntt("ntt2", x, flat, q, inverse, (ctypes.c_int(max_k),))
     ntt2_cuda.launches += 1
     return out
 
@@ -237,24 +211,14 @@ ntt2_cuda.launches = 0
 
 
 def conv2_cuda(x, aux, khat, khat_sh, max_k: int = K_MAX):
-    """K5 on x [..., 3, P, n] (int32, contiguous, on the GPU)."""
+    """K5 on x [..., 3, P, n] (int32, contiguous, on the GPU,
+    n = 8 .. 32768)."""
     if x.dim() < 3 or x.shape[-3] != 3:
         raise ValueError(f"conv2 kernel: x must be [..., 3, P, n], got "
                          f"{tuple(x.shape)}")
-    n, P = x.shape[-1], x.shape[-2]
-    log_n = _check_n("conv2", n, max_k)
-    tabs = [aux["tw_all"], aux["tw_all_sh"], aux["itw_all"],
-            aux["itw_all_sh"]]
-    check_tensors("conv2", x.device,
-                  [("x", x, x.shape), ("khat", khat, (3, P, n)),
-                   ("khat_sh", khat_sh, (3, P, n)),
-                   ("aux q", aux["q"], (3, 1, 1))]
-                  + [("table", t, (3, n)) for t in tabs])
-    out = torch.empty_like(x)
-    launch("ntt2", x.device, ctypes.c_int(1), x, out,
-           ctypes.c_longlong(x.numel() // n), ctypes.c_int(log_n),
-           ctypes.c_int(P), *tabs, khat, khat_sh, aux["q"],
-           ctypes.c_int(0), *_sched_arg(log_n, max_k))
+    _check_k("conv2", max_k)
+    out = launch_rows("ntt2", x, aux, khat, khat_sh, CTA_MAX_LOG_N,
+                      entry="launch_conv", extra=(ctypes.c_int(max_k),))
     conv2_cuda.launches += 1
     return out
 

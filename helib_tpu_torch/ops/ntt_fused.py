@@ -6,9 +6,12 @@ wrapper `apply_ntt`): for each row of x [..., P, n] the forward transform
 (n^-1 included) mod the row's prime, fully reduced.  Two versions of one
 function:
 
-  * `ntt_cuda`  -- the hand-written CUDA kernel (csrc/ntt.cu), one CTA per
-                   row with the row in shared memory, reading the flat
-                   [P, n] tables of Pow2NTT.flat();
+  * `ntt_cuda`  -- the hand-written CUDA kernel (csrc/ntt.cu), the
+                   forward and inverse modes of the row template
+                   csrc/ntt_rows.cuh (register composites of 3 levels, one
+                   CTA a row up to n = 32768, a cluster of 4 CTAs at
+                   n = 65536), reading the flat [P, n] tables of
+                   Pow2NTT.flat();
   * `ntt_plain` -- the staged torch transforms ntt_pow2_fwd / ntt_pow2_inv
                    (helib_tpu/ops/ntt.py), the reference the kernel is held
                    to bit for bit, reading the [P, 2^s] stage tables.
@@ -25,14 +28,9 @@ from __future__ import annotations
 
 import ctypes
 
-import torch
-
-from ._build import check_tensors, launch
 from .ntt import ntt_pow2_fwd, ntt_pow2_inv
 from .ntt2 import ntt_v2, ntt2_cuda, ntt2_plain
-
-MIN_LOG_N = 3    # the smallest transform the tests use (m = 16)
-MAX_LOG_N = 15   # 2^15 words = 128 KB of shared memory, within one CTA
+from .rows import MAX_LOG_N, launch_ntt, max_clusters
 
 
 def ntt_plain(x, t, inverse: bool):
@@ -41,26 +39,10 @@ def ntt_plain(x, t, inverse: bool):
 
 
 def ntt_cuda(x, flat, q, inverse: bool):
-    """The CUDA kernel on x [..., P, n] (int32, contiguous, on the GPU);
-    flat: Pow2NTT.flat() of the P primes as device tensors, q [P, 1]."""
-    n = x.shape[-1]
-    log_n = n.bit_length() - 1
-    if x.dim() < 2:
-        raise ValueError(f"ntt kernel: x must be [..., P, n], got "
-                         f"{tuple(x.shape)}")
-    P = x.shape[-2]
-    if n != 1 << log_n or not MIN_LOG_N <= log_n <= MAX_LOG_N:
-        raise ValueError(f"ntt kernel: n={n} is not a power of two in "
-                         f"[2^{MIN_LOG_N}, 2^{MAX_LOG_N}]")
-    keys = ("itw_all", "itw_all_sh") if inverse else ("tw_all", "tw_all_sh")
-    tabs = [flat[k] for k in keys]
-    check_tensors("ntt", x.device,
-                  [("x", x, x.shape), ("q", q, (P, 1))]
-                  + [(k, t, (P, n)) for k, t in zip(keys, tabs)])
-    out = torch.empty_like(x)
-    launch("ntt", x.device, x, out, ctypes.c_longlong(x.numel() // n),
-           ctypes.c_int(log_n), ctypes.c_int(P), *tabs, q,
-           ctypes.c_int(int(inverse)))
+    """The CUDA kernel on x [..., P, n] (int32, contiguous, on the GPU,
+    n = 8 .. 65536); flat: Pow2NTT.flat() of the P primes as device
+    tensors, q [P, 1]."""
+    out = launch_ntt("ntt", x, flat, q, inverse)
     ntt_cuda.launches += 1
     return out
 
@@ -79,3 +61,10 @@ def ntt(x, t, inverse: bool):
     if x.is_cuda:
         return ntt_cuda(x.contiguous(), t["flat"], t["q"], inverse)
     return ntt_plain(x, t, inverse)
+
+
+def ntt_max_clusters(device, log_n: int = MAX_LOG_N) -> int:
+    """How many clusters of K2's kernel at n = 2^log_n (15 or 16) the card
+    holds at once (cudaOccupancyMaxActiveClusters); 0 means it cannot
+    launch."""
+    return max_clusters("ntt", device, ctypes.c_int(log_n))

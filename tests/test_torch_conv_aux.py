@@ -1,8 +1,9 @@
 """Port vs helib_tpu: K3, the aux-major Bluestein convolution -- its plain
 version against `apply_conv_aux(interpret=True)`, a torch emulation of the
-CUDA kernels' register-composite schedule (conv_rows.cuh: one CTA, and
-clusters of 2 and 4 CTAs; K3's aux-major and K1's row-major row maps)
-against the plain versions, the aux-major `bluestein_apply` against the staged JAX transform
+CUDA kernels' register-composite schedule (ntt_rows.cuh: one CTA, and
+clusters of 2 and 4 CTAs; K3's aux-major and K1's row-major row maps in
+the convolution mode, K2's in the forward and inverse modes) against the
+plain versions, the aux-major `bluestein_apply` against the staged JAX transform
 (m = 101, 1271 and 32003), the table build, the dispatch by transform size
 and the wrapper's refusals (the CUDA kernel itself: test_torch_cuda.py)."""
 
@@ -21,6 +22,7 @@ from helib_tpu_torch.ops import conv as convmod
 from helib_tpu_torch.ops import ntt as tntt
 from helib_tpu_torch.ops import ntt2
 from helib_tpu_torch.ops.conv import conv_aux_cuda, conv_aux_plain
+from helib_tpu_torch.ops.ntt_fused import ntt_plain
 from helib_tpu_torch.ops.modops import (add_mod, sub_mod, mul_mod_shoup,
                                         shoup, to_device, to_host)
 
@@ -93,7 +95,7 @@ def _levels(r, s0, b, k, w, wsh, q, inverse):
 
 
 def _composite(s, log_loc, s0, k, c, h, w, wsh, q, inverse):
-    """Composite (s0, k) of conv_rows.cuh on the parts s [R, 2^log_loc]
+    """Composite (s0, k) of ntt_rows.cuh on the parts s [R, 2^log_loc]
     of CTA h: the groups of for_each_group (word base + t L of group g,
     block b = g / L), levels at global stage c + s0 and global block
     (h << s0) + b."""
@@ -110,15 +112,50 @@ def _composite(s, log_loc, s0, k, c, h, w, wsh, q, inverse):
     return out
 
 
+def _cross_forward(rows, cluster, log_loc, w, wsh, q):
+    """The cross composite (0, c), forward, of ntt_rows.cuh on the rows
+    [R, n]: CTA cta takes the groups j of its share (the words
+    j + u n/C), runs levels 0 .. c-1 and writes word u to CTA u's part;
+    returns the parts [R, n/C] of the C CTAs."""
+    c = cluster.bit_length() - 1
+    share = 1 << (log_loc - c)
+    parts = [torch.empty(rows.shape[0], 1 << log_loc, dtype=rows.dtype)
+             for _ in range(cluster)]
+    for cta in range(cluster):      # the CTA that computes these groups
+        j = torch.arange(cta * share, (cta + 1) * share)
+        r = [rows[:, j + (u << log_loc)] for u in range(cluster)]
+        _levels(r, 0, torch.zeros_like(j), c, w, wsh, q, False)
+        for u in range(cluster):
+            parts[u][:, j] = r[u]
+    return parts
+
+
+def _cross_inverse(parts, log_loc, w, wsh, q):
+    """The cross composite (0, c), inverse: each CTA reads its groups back
+    from the C parts, runs the levels and writes out times n^-1."""
+    cluster = len(parts)
+    c = cluster.bit_length() - 1
+    share = 1 << (log_loc - c)
+    out = torch.empty(parts[0].shape[0], cluster << log_loc,
+                      dtype=parts[0].dtype)
+    for cta in range(cluster):
+        j = torch.arange(cta * share, (cta + 1) * share)
+        r = [parts[u][:, j] for u in range(cluster)]
+        _levels(r, 0, torch.zeros_like(j), c, w, wsh, q, True)
+        for u in range(cluster):
+            out[:, j + (u << log_loc)] = mul_mod_shoup(
+                r[u], w[:, :1], wsh[:, :1], q)
+    return out
+
+
 def _emulate_kernel(x, aux, khat, khat_sh, cluster, aux_major=True):
-    """conv_rows.cuh on x (aux-major [3, ..., P, n] as K3, or row-major
-    [..., 3, P, n] as K1), each row on a cluster of `cluster` CTAs: the
-    cross composite (0, c) over the CTAs, forward split by groups with
-    word u of each group written to CTA u; then on each CTA's part the
-    composites of ops/ntt2.schedule(log_n - c, 3) at global stage c + s0
-    and global block (h << s0) + b, the last forward one, the khat product
-    and the first inverse one on the same groups; then the cross composite
-    inverse, read back from the CTAs, times n^-1."""
+    """ntt_rows.cuh's convolution on x (aux-major [3, ..., P, n] as K3, or
+    row-major [..., 3, P, n] as K1), each row on a cluster of `cluster`
+    CTAs: the cross composite (0, c) over the CTAs, then on each CTA's part
+    the composites of ops/ntt2.schedule(log_n - c, 3) at global stage
+    c + s0 and global block (h << s0) + b, the last forward one, the khat
+    product and the first inverse one on the same groups; then the cross
+    composite inverse, read back from the CTAs, times n^-1."""
     n, P = x.shape[-1], x.shape[-2]
     log_n = n.bit_length() - 1
     rows = x.reshape(-1, n)
@@ -136,16 +173,8 @@ def _emulate_kernel(x, aux, khat, khat_sh, cluster, aux_major=True):
     kh, khsh = khat.reshape(-1, n)[krow], khat_sh.reshape(-1, n)[krow]
     c = cluster.bit_length() - 1
     log_loc = log_n - c
-    share = 1 << (log_loc - c)
     sched = ntt2.schedule(log_loc, 3)
-    parts = [torch.empty(R, 1 << log_loc, dtype=x.dtype)
-             for _ in range(cluster)]
-    for cta in range(cluster):      # the CTA that computes these groups
-        j = torch.arange(cta * share, (cta + 1) * share)
-        r = [rows[:, j + (u << log_loc)] for u in range(cluster)]
-        _levels(r, 0, torch.zeros_like(j), c, w_f, wsh_f, q, False)
-        for u in range(cluster):
-            parts[u][:, j] = r[u]
+    parts = _cross_forward(rows, cluster, log_loc, w_f, wsh_f, q)
     for h in range(cluster):
         s = parts[h]
         own = slice(h << log_loc, (h + 1) << log_loc)
@@ -155,15 +184,39 @@ def _emulate_kernel(x, aux, khat, khat_sh, cluster, aux_major=True):
         for s0, k in reversed(sched):
             s = _composite(s, log_loc, s0, k, c, h, w_i, wsh_i, q, True)
         parts[h] = s
-    out = torch.empty_like(rows)
-    for cta in range(cluster):
-        j = torch.arange(cta * share, (cta + 1) * share)
-        r = [parts[u][:, j] for u in range(cluster)]
-        _levels(r, 0, torch.zeros_like(j), c, w_i, wsh_i, q, True)
-        for u in range(cluster):
-            out[:, j + (u << log_loc)] = mul_mod_shoup(
-                r[u], w_i[:, :1], wsh_i[:, :1], q)
-    return out.reshape(x.shape)
+    return _cross_inverse(parts, log_loc, w_i, wsh_i, q).reshape(x.shape)
+
+
+def _emulate_ntt(x, flat, q, cluster, inverse, max_k=3):
+    """ntt_rows.cuh's forward and inverse modes (K2; K4 at max_k) on x
+    [..., P, n], row r on prime r mod P, each row on a cluster of `cluster`
+    CTAs.  Forward: the cross composite from x, then the local composites
+    of schedule(log_n - c, max_k), the last written out.  Inverse: the
+    local composites in reverse from the CTA's part of x, then the cross
+    composite, times n^-1."""
+    n, P = x.shape[-1], x.shape[-2]
+    log_n = n.bit_length() - 1
+    rows = x.reshape(-1, n)
+    t = torch.arange(rows.shape[0]) % P
+    qq = q.reshape(P)[t][:, None]
+    keys = ("itw_all", "itw_all_sh") if inverse else ("tw_all", "tw_all_sh")
+    w, wsh = (flat[k][t] for k in keys)
+    c = cluster.bit_length() - 1
+    log_loc = log_n - c
+    sched = ntt2.schedule(log_loc, max_k)
+    if not inverse:
+        parts = _cross_forward(rows, cluster, log_loc, w, wsh, qq)
+        for h in range(cluster):
+            for s0, k in sched:
+                parts[h] = _composite(parts[h], log_loc, s0, k, c, h, w, wsh,
+                                      qq, False)
+        return torch.cat(parts, dim=1).reshape(x.shape)
+    parts = list(rows.split(1 << log_loc, dim=1))
+    for h in range(cluster):
+        for s0, k in reversed(sched):
+            parts[h] = _composite(parts[h], log_loc, s0, k, c, h, w, wsh, qq,
+                                  True)
+    return _cross_inverse(parts, log_loc, w, wsh, qq).reshape(x.shape)
 
 
 def _emulation_args(n, P, seed, aux_major):
@@ -199,6 +252,25 @@ def test_kernel_schedule_emulation_row_major_matches_plain(n, cluster):
     want = convmod.conv_plain(*args)
     assert torch.equal(_emulate_kernel(*args, cluster=cluster,
                                        aux_major=False), want)
+
+
+@pytest.mark.parametrize("n", [64, 2048])
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+def test_kernel_schedule_emulation_ntt_matches_plain(n, cluster):
+    """K2's map (row r on prime r mod P) in the forward and inverse modes,
+    and K4's schedule at k = 2: ntt_plain's residues under a lead dim."""
+    qs = np.array(gen_primes(2 * n, 3), dtype=np.uint32)
+    tab = tntt.Pow2NTT(qs, n, negacyclic=True)
+    tree = tab.tree("cpu")
+    flat = {k: to_device(v, "cpu") for k, v in tab.flat().items()}
+    rng = np.random.default_rng(n + cluster + 11)
+    x = to_device(rng.integers(0, qs[:, None].astype(np.int64), (2, 3, n))
+                  .astype(np.uint32), "cpu")
+    for inverse in (False, True):
+        want = ntt_plain(x, tree, inverse)
+        for max_k in (3, 2):
+            assert torch.equal(_emulate_ntt(x, flat, tree["q"], cluster,
+                                            inverse, max_k), want)
 
 
 @pytest.mark.parametrize("m,P,lead", [(101, 3, (2,)), (1271, 2, (2,)),

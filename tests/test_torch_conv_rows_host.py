@@ -1,5 +1,5 @@
 """K1 and K3's CUDA sources (ops/csrc/conv.cu, conv_aux.cu and their device
-template conv_rows.cuh) run on the host: compiled by g++ against a small
+template ntt_rows.cuh) run on the host: compiled by g++ against a small
 stand-in for the CUDA runtime and cooperative groups (below), each CTA's
 threads as std::threads, __syncthreads() and cluster.sync() as
 std::barriers, a cluster's distributed shared memory as its CTAs' buffers.
@@ -48,6 +48,12 @@ struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
+struct uint2 { uint32_t x, y; };
+struct uint4 { uint32_t x, y, z, w; };
+inline uint2 make_uint2(uint32_t x, uint32_t y) { return {x, y}; }
+inline uint4 make_uint4(uint32_t x, uint32_t y, uint32_t z, uint32_t w) {
+  return {x, y, z, w};
+}
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 typedef void* cudaStream_t;
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
@@ -157,7 +163,7 @@ SHARED_DECL = "extern __shared__ uint32_t s[];"
 # with helib_conv_launch's signature: one CTA a row below n = 65536, a
 # cluster a row at n = 65536.
 HARNESS_CU = r"""
-#include "conv_rows.cuh"
+#include "ntt_rows.cuh"
 
 #define CONV_ARGS                                                         \
   const void *x, void *out, long long rows, int log_n, int P,             \
@@ -170,10 +176,12 @@ HARNESS_CU = r"""
 template <class Map, int kThreads, int kCluster, int kClusterThreads>
 int run(CONV_ARGS) {
   const auto s = static_cast<cudaStream_t>(stream);
+  using helib::kConv, helib::kMaxK;
   if (log_n == 16)
-    return helib::ConvRows<Map, kCluster, kClusterThreads, 1>::launch(
-        CONV_NAMES, s);
-  return helib::ConvRows<Map, 1, kThreads, 1>::launch(CONV_NAMES, s);
+    return helib::Rows<Map, kConv, kMaxK, kCluster, kClusterThreads,
+                       1>::launch(CONV_NAMES, s);
+  return helib::Rows<Map, kConv, kMaxK, 1, kThreads, 1>::launch(CONV_NAMES,
+                                                                s);
 }
 
 extern "C" {
@@ -208,13 +216,16 @@ def _gxx(gxx, inc, src, out, *extra):
             *extra, "-x", "c++", str(src), "-o", str(out)]
 
 
-@pytest.fixture(scope="module")
-def libs(tmp_path_factory):
-    """{(source, label): the C entry of the library g++ built}."""
+def build_host_libs(tmp_path_factory, label: str, names, harness: str):
+    """Builds ops/csrc/<name>.cu for each of `names` and the test's own
+    harness source (which includes the csrc headers) with g++ against the
+    stand-in runtime, one g++ per source, all started together; returns
+    {name: ctypes.CDLL} with the harness as "harness".  Skips without a g++
+    that has C++20's <barrier> and <thread>."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ (C++20) to build the kernel sources")
-    root = tmp_path_factory.mktemp("conv_rows_host")
+    root = tmp_path_factory.mktemp(label)
     probe = root / "probe.cc"
     probe.write_text(PROBE_CC)
     if subprocess.run(_gxx(gxx, root, probe, root / "probe"),
@@ -228,13 +239,13 @@ def libs(tmp_path_factory):
     src.mkdir()
     for name in os.listdir(CSRC):
         text = open(os.path.join(CSRC, name)).read()
-        if name == "conv_rows.cuh":
+        if name == "ntt_rows.cuh":
             assert text.count(SHARED_DECL) == 1
             text = text.replace(SHARED_DECL, "uint32_t* s = stub::smem();")
         (src / name).write_text(text)
-    (src / "harness.cu").write_text(HARNESS_CU)
+    (src / "harness.cu").write_text(harness)
     jobs = {}
-    for name in ("conv", "conv_aux", "harness"):
+    for name in (*names, "harness"):
         so = root / f"lib{name}.so"
         jobs[name] = (so, subprocess.Popen(
             _gxx(gxx, inc, src / f"{name}.cu", so, "-shared", "-fPIC"),
@@ -244,6 +255,14 @@ def libs(tmp_path_factory):
         log, _ = proc.communicate(timeout=600)
         assert proc.returncode == 0, f"g++ {name}.cu:\n{log}"
         built[name] = ctypes.CDLL(str(so))
+    return built
+
+
+@pytest.fixture(scope="module")
+def libs(tmp_path_factory):
+    """{(source, label): the C entry of the library g++ built}."""
+    built = build_host_libs(tmp_path_factory, "conv_rows_host",
+                            ("conv", "conv_aux"), HARNESS_CU)
     out = {}
     for key, (name, entry) in ENTRIES.items():
         fn = getattr(built[name], entry)

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (K1 conv, K2 ntt, K3 conv_aux, K4 ntt2, K5
-conv2, the probes P1 and P2) and its BGV and CKKS paths on the card, against
-the plain torch versions and the port on the CPU.
+conv2, the probes P1 and P2) and its BGV and CKKS paths (CKKS at m=1024
+and m=131072) on the card, against the plain torch versions and the port
+on the CPU.
 
 Every test needs an NVIDIA GPU and skips without one.  The file imports no
 JAX, so it also runs where only PyTorch is installed (the conftest, which
@@ -24,7 +25,7 @@ from helib_tpu_torch.ops import ntt_fused, ntt2, probes
 from helib_tpu_torch.nt.primegen import gen_primes
 from helib_tpu_torch.ops.modops import shoup, to_device
 from helib_tpu_torch.pipeline import (make_batched_mult_relin,
-                                      make_automorph_relin)
+                                      make_automorph_relin, make_mult_relin)
 
 torch.set_num_threads(1)
 
@@ -154,20 +155,26 @@ def test_rotate_m1271_on_gpu_equals_cpu_port(gpu):
         assert g.is_cuda and torch.equal(g.cpu(), w)
 
 
-def _ntt_args(n, P, seed, dev):
+def _ntt_args(n, P, seed, dev, lead=(2,)):
     qs = np.array(gen_primes(2 * n, P), dtype=np.uint32)
     tab = ntt.Pow2NTT(qs, n, negacyclic=True)
     t = {**tab.tree(dev),
          "flat": {k: to_device(v, dev) for k, v in tab.flat().items()}}
     rng = np.random.default_rng(seed)
-    x = rng.integers(0, qs[:, None].astype(np.int64), (2, P, n))
+    x = rng.integers(0, qs[:, None].astype(np.int64), lead + (P, n))
     return to_device(x.astype(np.uint32), dev), t
 
 
-@pytest.mark.parametrize("n", [8, 64, 2048, 16384, 32768])
-def test_ntt_kernel_matches_plain_on_gpu(gpu, n):
-    """Both directions, a leading batch dim (row r uses prime r mod P)."""
-    x, t = _ntt_args(n, 5, seed=n, dev=gpu)
+NTT_SIZES = [8, 64, 2048, 16384, 32768, 65536]
+
+
+@pytest.mark.parametrize("P,lead", [(5, (2,)), (7, (3, 13))])
+@pytest.mark.parametrize("n", NTT_SIZES)
+def test_ntt_kernel_matches_plain_on_gpu(gpu, n, P, lead):
+    """Both directions, leading batch dims (row r uses prime r mod P), odd
+    P; n = 32768 on its shipped configuration, n = 65536 on 4-CTA
+    clusters."""
+    x, t = _ntt_args(n, P, seed=n + P, dev=gpu, lead=lead)
     before = ntt_fused.ntt_cuda.launches
     fwd = ntt_fused.ntt(x, t, inverse=False)
     inv = ntt_fused.ntt(fwd, t, inverse=True)
@@ -178,7 +185,7 @@ def test_ntt_kernel_matches_plain_on_gpu(gpu, n):
     assert torch.equal(inv, x)
 
 
-@pytest.mark.parametrize("n", [48, 4, 65536])
+@pytest.mark.parametrize("n", [48, 4, 131072])
 def test_ntt_kernel_refuses_unsupported_lengths(gpu, n):
     x = torch.zeros((1, 2, n), dtype=torch.int32, device=gpu)
     before = ntt_fused.ntt_cuda.launches
@@ -202,7 +209,18 @@ def test_ckks_batched_mult_relin_on_gpu_equals_cpu_port(gpu):
         assert g.is_cuda and torch.equal(g.cpu(), w)
 
 
-@pytest.mark.parametrize("n", [8, 64, 2048, 16384, 32768])
+@pytest.mark.parametrize("n", NTT_SIZES)
+def test_ntt_kernel_equals_ntt2_at_k3(gpu, n):
+    """K2 and K4 at k = 3 are one instantiation: equal bit for bit."""
+    x, t = _ntt_args(n, 7, seed=n + 13, dev=gpu, lead=(3,))
+    for inverse in (False, True):
+        got = ntt_fused.ntt_cuda(x, t["flat"], t["q"], inverse)
+        assert torch.equal(got, ntt2.ntt2_cuda(x, t["flat"], t["q"],
+                                               inverse, 3))
+        assert torch.equal(got, ntt_fused.ntt_plain(x, t, inverse))
+
+
+@pytest.mark.parametrize("n", NTT_SIZES)
 def test_ntt2_kernel_matches_plain_at_every_k(gpu, n):
     """K4 against ntt2_plain and K2's ntt_plain, both directions, every k."""
     x, t = _ntt_args(n, 5, seed=n + 7, dev=gpu)
@@ -217,6 +235,22 @@ def test_ntt2_kernel_matches_plain_at_every_k(gpu, n):
         assert torch.equal(got_f, fwd) and torch.equal(got_i, inv)
         assert torch.equal(got_f, ntt2.ntt2_plain(x, t["flat"], t["q"],
                                                   False, k))
+
+
+def test_ckks_m131072_mult_relin_on_gpu_equals_cpu_port(gpu):
+    """m=131072 (n = 65536): every transform through K2's 4-CTA
+    clusters."""
+    params = dict(m=131072, p=-1, r=30, bits=440, c=3, scheme="ckks")
+    ctx, ctx_cpu = Context(**params), Context(**params, device="cpu")
+    fn, args = make_mult_relin(ctx, SecKey(ctx, seed=2))
+    fn_cpu, _ = make_mult_relin(ctx_cpu, SecKey(ctx_cpu, seed=2))
+    before = ntt_fused.ntt_cuda.launches
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert ntt_fused.ntt_cuda.launches - before == 8
+    want = fn_cpu(*[a.cpu() for a in args])
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g.cpu(), w)
 
 
 @pytest.mark.parametrize("n", [8, 64, 2048, 16384, 32768])

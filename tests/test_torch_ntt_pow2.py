@@ -52,6 +52,23 @@ def test_ntt_plain_matches_staged_reference(n):
     np.testing.assert_array_equal(back, x)
 
 
+def test_ntt_plain_matches_staged_reference_at_n65536():
+    """m = 131072 (n = 65536, the JAX package's MAX_PALLAS_N, which the
+    port's K2 runs on 4-CTA clusters): two primes under a lead dim, both
+    directions."""
+    n = 1 << 16
+    qs, x = _case(n, 2, (2,), seed=5)
+    jt = jntt.Pow2NTT(qs, n, negacyclic=True).tree()
+    tt = tntt.Pow2NTT(qs, n, negacyclic=True).tree("cpu")
+    ref = np.asarray(jax.jit(jntt.ntt_pow2_fwd)(jnp.asarray(x), jt))
+    got = ntt_plain(to_device(x, "cpu"), tt, inverse=False)
+    np.testing.assert_array_equal(to_host(got), ref)
+    back = np.asarray(jax.jit(jntt.ntt_pow2_inv)(jnp.asarray(ref), jt))
+    np.testing.assert_array_equal(
+        to_host(ntt_plain(got, tt, inverse=True)), back)
+    np.testing.assert_array_equal(back, x)
+
+
 def test_ntt_plain_matches_pallas_ntt_interpret():
     n = 2048
     qs, x = _case(n, 5, (), seed=17)
@@ -94,8 +111,9 @@ def test_ntt_kernel_wrapper_refuses_cpu_tensors_and_large_n():
     before = ntt_cuda.launches
     with pytest.raises(ValueError, match="CUDA tensor"):
         ntt_cuda(to_device(x, "cpu"), flat, q, inverse=False)
-    # n = 65536 (m = 131072) does not fit one CTA: refused, no fallback
-    big = torch.zeros((1, 2, 1 << 16), dtype=torch.int32)
+    # n = 131072 (m = 262144) is above the kernel's 4-CTA clusters (and
+    # above helib_tpu's MAX_PALLAS_N): refused, no fallback
+    big = torch.zeros((1, 2, 1 << 17), dtype=torch.int32)
     with pytest.raises(ValueError, match="power of two"):
         ntt_cuda(big, flat, q, inverse=True)
     with pytest.raises(ValueError, match="power of two"):
