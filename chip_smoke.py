@@ -6,15 +6,18 @@ Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi);
   2. build the five CUDA sources from ops/csrc (one nvcc per source,
      started together, sm_90a), timed, with every kernel's registers and
-     spills (K1 and K3: conv_rows_kernel<map, cluster, threads, minimum CTAs
-     an SM>; K4 and K5 for each composite size k);
+     spills (each an instantiation of ntt_rows.cuh, printed as
+     ntt_rows_kernel<row map, mode, largest composite K, CTAs a row,
+     threads a CTA, minimum CTAs an SM>; K4 and K5 at K = 1, 2, 3);
   3. each kernel against its plain torch version on the card, bit for bit:
-     K1 conv (and K5 at k = 3, the same schedule) and K2 ntt (both
-     directions), n = 8 .. 32768, K3 conv_aux (aux-major), n = 8 .. 65536,
-     the last on 4-CTA clusters and on 2-CTA ones (conv_aux.cu's
-     helib_conv_aux_launch_c2), and K4 ntt2 and K5 conv2 at every k,
-     n = 8 .. 32768, P = 5 and 20, against their own plain versions and
-     K2's and K1's;
+     K1 conv (and K5 at k = 3, the same code), n = 8 .. 32768; K2 ntt,
+     both directions, n = 8 .. 65536, so on every shipped configuration
+     (one CTA of 512 threads a row, one of 1024 at n = 32768, 4-CTA
+     clusters at n = 65536); K3 conv_aux (aux-major), n = 8 .. 65536, the
+     last on 4-CTA clusters and on 2-CTA ones (conv_aux.cu's
+     helib_conv_aux_launch_c2); K4 ntt2 at every k, n = 8 .. 65536, and K5
+     conv2 at every k, n = 8 .. 32768, against their own plain versions and
+     K2's and K1's, K4 at k = 3 also against K2; P = 5 and 20;
   4. the BGV path -- batched mult+relin at m=8009, p=2, bits=380, c=3,
      batch 16 -- through K1 (and no other kernel), held against the same
      chain with the plain convolution and against the port on the host CPU,
@@ -30,7 +33,8 @@ Phases, in order; any failure exits non-zero:
      launches queued behind a sleep kernel), beside its bound and its plain
      version; on each of those inputs the kernel must equal its plain
      version bit for bit; K5 at k = 3 timed in turns with K1 on K1's
-     inputs;
+     inputs, K4 at k = 3 in turns with K2 on K2's, and the CTAs of K2's
+     n = 32768 kernel the card holds at once;
   7. the v2 schedule (HELIB_NTT_V2=1) on the same two paths and inputs:
      the BGV path through K5 alone and the CKKS path through K4 alone, each
      bit-identical to the default run; ops/s, a profile, K5's and K4's rows
@@ -41,7 +45,13 @@ Phases, in order; any failure exits non-zero:
      real and the imaginary part, once through K2 and once through K4,
      bit-identical, each with a decrypt oracle against numpy within
      min(1e-2, 4 x error_bound()); ms and launches per op, peak memory;
-  9. the per-op BGV family at HElib's bgv_basic "big" size -- m=32003, p=2,
+  9. CKKS at m=131072 (n = 65536), bits=440, c=3, r=30, unbatched: one
+     mult+relin through K2 alone (4-CTA clusters), held against the same
+     chain with the plain NTT and against the port on the host CPU, an
+     encrypt -> multiply -> rescale -> decrypt oracle within
+     min(1e-2, 4 x error_bound()) at scale 2^40; ms per call, K2's row at
+     n = 65536 and the clusters the card holds at once;
+ 10. the per-op BGV family at HElib's bgv_basic "big" size -- m=32003, p=2,
      bits=5800, c=3, unbatched, as benchmarks/bench_suite.py times it:
      mult+relin, rotate, encrypt (device sampling), decrypt, add and the
      ciphertext I/O round trip -- through K3 (and no other kernel), each
@@ -49,7 +59,7 @@ Phases, in order; any failure exits non-zero:
      plain K3 and, at m=32003 with 1500 bits, against the port on the host
      CPU; ms per op, setup time, peak memory, a profile of one mult+relin,
      K3's row and the clusters the card holds at once;
- 10. the cost probes at the TPU probes' shapes: P1's seven variants on 160
+ 11. the cost probes at the TPU probes' shapes: P1's seven variants on 160
      rows of 16384 words, 50 chained applications, and P2's three phases on
      160 rows of n = 16384, 100 chained, each held to its plain version bit
      for bit; us per application and per row beside each bound, and K1's
@@ -1221,104 +1231,6 @@ def beside(fn, args, name: str, label: str, other, card: str) -> dict:
     return ms
 
 
-# ---------------------------------------------------------------------------
-# the occupancy candidates of K2 at n = 32768 (--ntt-candidates)
-# ---------------------------------------------------------------------------
-
-# which -> (CTAs a row, threads a CTA, minimum CTAs an SM); 0 is the staged
-# radix-2 kernel K2 ran before (csrc/ntt_candidates.cu)
-NTT_CANDIDATES = {0: ("staged", 512, 1), 1: (1, 512, 1), 2: (1, 1024, 1),
-                  3: (1, 512, 2), 4: (2, 256, 3), 5: (2, 512, 3),
-                  6: (2, 512, 2), 7: (2, 1024, 1), 8: (4, 256, 3),
-                  9: (4, 256, 4), 10: (4, 128, 6), 11: (4, 512, 2),
-                  12: (4, 256, 6)}
-
-
-def ntt_candidates(dev, card: str):
-    """Each candidate on the CKKS m=65536 batch-16 path's own K2 inputs:
-    held to ntt_plain bit for bit on each, then timed (mean ms a launch
-    over the path's launches, CUDA events behind the sleep kernel) in two
-    rounds in opposite orders, forward and inverse apart, beside the
-    shipped K2 and the CTAs or clusters resident."""
-    import ctypes
-    from helib_tpu_torch.context import Context
-    from helib_tpu_torch.keys import SecKey
-    from helib_tpu_torch.pipeline import make_batched_mult_relin
-    from helib_tpu_torch.ops import _build, ntt_fused
-    t0 = time.time()
-    _build.build("ntt_candidates")
-    print(f"candidates: ntt_candidates.cu built in {time.time() - t0:.1f} s")
-    for line in ptxas_summary(_build.ptxas_log.get("ntt_candidates", "")):
-        print(f"  ntt_candidates.cu {line}")
-    lib = _build.load("ntt_candidates")
-
-    ctx = Context(**CKKS, device=dev)
-    fn, args = make_batched_mult_relin(ctx, SecKey(ctx, seed=CKKS_SEED),
-                                       BATCH)
-    with capture(ntt_fused, "ntt") as cap:
-        fn(*args)
-    torch.cuda.synchronize()
-    calls = [(x.contiguous(), t, inv) for x, t, inv in cap.calls]
-    print(f"candidates: {len(calls)} K2 inputs "
-          f"{[(tuple(x.shape), inv) for x, _, inv in calls]}")
-
-    def run(which, x, t, inv):
-        n, P = x.shape[-1], x.shape[-2]
-        keys = ("itw_all", "itw_all_sh") if inv else ("tw_all", "tw_all_sh")
-        out = torch.empty_like(x)
-        _build.launch("ntt_candidates", dev, ctypes.c_int(which), x, out,
-                      ctypes.c_longlong(x.numel() // n),
-                      ctypes.c_int(n.bit_length() - 1), ctypes.c_int(P),
-                      *[t["flat"][k] for k in keys], t["q"],
-                      ctypes.c_int(int(inv)))
-        return out
-
-    kinds = {w: (lambda a, w=w: run(w, *a)) for w in NTT_CANDIDATES}
-    kinds["shipped"] = lambda a: ntt_fused.ntt_cuda(a[0], a[1]["flat"],
-                                                    a[1]["q"], a[2])
-    for name, f in kinds.items():
-        for a in calls:
-            if not torch.equal(f(a), ntt_fused.ntt_plain(*a)):
-                raise AssertionError(f"candidate {name} != ntt_plain on "
-                                     f"{tuple(a[0].shape)} inverse={a[2]}")
-    print(f"candidates: all {len(kinds)} == ntt_plain bit for bit on the "
-          f"path's inputs")
-    ms = {name: {"fwd": [], "inv": []} for name in kinds}
-    names = list(kinds)
-    for order in (names, names[::-1]):
-        for name in order:
-            for d, inv in (("fwd", False), ("inv", True)):
-                sel = [a for a in calls if a[2] == inv]
-                ms[name][d].append(sum(event_ms(lambda: kinds[name](a))
-                                       for a in sel) / len(sel))
-    resident = {}
-    for w in NTT_CANDIDATES:
-        if w:
-            c = ctypes.c_int(0)
-            err = lib.helib_ntt_candidates_resident(ctypes.c_int(w),
-                                                    ctypes.c_int(15),
-                                                    ctypes.byref(c))
-            resident[w] = c.value if err == 0 else f"error {err}"
-    nf = sum(1 for a in calls if not a[2])
-    for name in names:
-        mean = {d: sum(v) / len(v) for d, v in ms[name].items()}
-        path = (nf * mean["fwd"] + (len(calls) - nf) * mean["inv"]) \
-            / len(calls)
-        cfg = NTT_CANDIDATES.get(name, "shipped")
-        print(f"candidates: {str(name):8s} {str(cfg):18s} path "
-              f"{path:.5f} fwd "
-              f"{mean['fwd']:.5f} ({ms[name]['fwd'][0]:.5f}, "
-              f"{ms[name]['fwd'][1]:.5f}) inv {mean['inv']:.5f} "
-              f"({ms[name]['inv'][0]:.5f}, {ms[name]['inv'][1]:.5f}) ms, "
-              f"resident {resident.get(name, '-')}")
-    print(json.dumps({"metric": "torch_cuda_ntt_candidates_ms_n32768",
-                      "configs": {str(k): v for k, v in
-                                  NTT_CANDIDATES.items()},
-                      "ms": ms, "resident": resident,
-                      "launches_fwd_inv": [nf, len(calls) - nf],
-                      "card": card}))
-
-
 MODES = {0: "conv", 1: "forward", 2: "inverse"}   # ntt_rows.cuh Mode
 
 
@@ -1380,7 +1292,7 @@ def main() -> int:
           f"rows (n = 8 .. 32768, max |err| = {err})")
     rows, err = check_ntt(dev)
     print(f"kernels: ntt == ntt_plain bit for bit on {rows} rows "
-          f"(n = 8 .. 32768, P = 5 and 20, both directions, "
+          f"(n = 8 .. 65536, P = 5 and 20, both directions, "
           f"max |err| = {err})")
     rows, err = check_conv_aux(dev)
     print(f"kernels: conv_aux == conv_aux_plain bit for bit on {rows} rows "
@@ -1388,15 +1300,12 @@ def main() -> int:
           f"n = 65536 rows on 4-CTA and on 2-CTA clusters, max |err| = {err})")
     rows, err = check_ntt2(dev)
     print(f"kernels: ntt2 == ntt2_plain == ntt_plain bit for bit on {rows} "
-          f"rows (n = 8 .. 32768, P = 5 and 20, both directions, every k, "
-          f"max |err| = {err})")
+          f"rows (n = 8 .. 65536, P = 5 and 20, both directions, every k; "
+          f"== ntt at k = 3; max |err| = {err})")
     rows, err = check_conv2(dev)
     print(f"kernels: conv2 == conv2_plain == conv_plain bit for bit on "
           f"{rows} rows (n = 8 .. 32768, P = 5 and 20, every k, "
           f"max |err| = {err})")
-    if "--ntt-candidates" in sys.argv:
-        ntt_candidates(dev, card)
-        return 0
 
     fn, args, launches = main_path(dev)
     kernels = {"conv": measure(
@@ -1421,7 +1330,7 @@ def main() -> int:
     beside(fn, args, "ntt", "ntt2_k3", lambda x, t, inv: ntt2_cuda(
         x.contiguous(), t["flat"], t["q"], inv, 3), card)
     print(f"ckks path: K2's n = 32768 kernel: {ntt_max_clusters(dev, 15)} "
-          f"clusters resident at once")
+          f"rows resident at once (one CTA a row)")
     kernels["ntt2"] = v2_path(
         fn, args, "ntt2", "ntt", "ckks",
         "torch_cuda_ckks_mult_relin_v2_ops_per_s_m65536_b440_batch16", card)

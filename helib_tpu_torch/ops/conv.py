@@ -33,11 +33,8 @@ from __future__ import annotations
 from .modops import mul_mod_shoup
 from .ntt import ntt_pow2_fwd, ntt_pow2_inv
 from .ntt2 import ntt_v2, conv2_cuda, conv2_plain
-from . import rows
-from .rows import launch_rows, max_clusters
-
-MAX_LOG_N = rows.CTA_MAX_LOG_N    # K1: one CTA a row
-AUX_MAX_LOG_N = rows.MAX_LOG_N    # K3: a cluster of CTAs a row at 2^16
+from .rows import (CTA_MAX_LOG_N, MAX_LOG_N as AUX_MAX_LOG_N, launch_rows,
+                   max_clusters)
 
 
 def conv_plain(x, aux, khat, khat_sh):
@@ -53,7 +50,7 @@ def conv_cuda(x, aux, khat, khat_sh):
     if x.dim() < 3 or x.shape[-3] != 3:
         raise ValueError(f"conv kernel: x must be [..., 3, P, n], got "
                          f"{tuple(x.shape)}")
-    out = launch_rows("conv", x, aux, khat, khat_sh, MAX_LOG_N)
+    out = launch_rows("conv", x, aux, khat, khat_sh, CTA_MAX_LOG_N)
     conv_cuda.launches += 1
     return out
 

@@ -1,6 +1,6 @@
-// Code shared by the port's kernels (conv.cu, ntt.cu, conv_aux.cu): fully
-// reduced 32-bit modular arithmetic, the staged radix-2 power-of-2 NTT on a
-// row held in shared memory, and the error-string export of each library.
+// Code shared by the port's kernel sources: the error-string export of each
+// library (every source includes this header), and the fully reduced 32-bit
+// modular arithmetic of the cost probes' staged stages (probes.cu).
 //
 // Residues are uint32 values below a prime q < 2^30 (int32 bit patterns on
 // the torch side).  Every function returns a value in [0, q), so a kernel
@@ -33,54 +33,6 @@ __device__ __forceinline__ uint32_t mul_shoup(uint32_t a, uint32_t w,
   const uint32_t hi = __umulhi(a, wsh);
   const uint32_t r = a * w - hi * q;
   return r >= q ? r - q : r;
-}
-
-// The staged transforms of helib_tpu/ops/ntt.py (ntt_pow2_fwd /
-// ntt_pow2_inv) on the row s[0, 2^log_n), all threads of the CTA taking
-// part.  Forward stage st pairs (j, j + n/2^(st+1)) inside block
-// i = j / (n/2^st) with twiddle w[2^st + i], so the output is in
-// `eval_exponents` order without a bit reversal; the inverse runs the same
-// pairs in reverse stage order (its n^-1 product is left to the caller).
-// w/wsh are one prime's flat table and its Shoup companions
-// (Pow2NTT.flat()).  Each stage ends in a barrier.
-//
-// A CTA that holds one of 2^first equal parts of a longer row (a cluster,
-// conv_aux.cu) runs that row's stages first .. first + log_n - 1, which stay
-// inside its part: local stage st is global stage first + st, and its local
-// block i is the global block boff * 2^st + i, where boff is the part's
-// index.  first = boff = 0 is the whole row.
-template <bool kInverse>
-__device__ __forceinline__ void ntt_stages(uint32_t* s, int log_n,
-                                           const uint32_t* __restrict__ w,
-                                           const uint32_t* __restrict__ wsh,
-                                           uint32_t q, int first = 0,
-                                           int boff = 0) {
-  const int n_half = 1 << (log_n - 1);
-  for (int k = 0; k < log_n; ++k) {
-    const int st = kInverse ? log_n - 1 - k : k;
-    const int log_half = log_n - 1 - st;
-    const int half = 1 << log_half;
-    const int base = (1 << (first + st)) + (boff << st);
-    for (int b = threadIdx.x; b < n_half; b += blockDim.x) {
-      const int i = b >> log_half;
-      const int j0 = (i << (log_half + 1)) | (b & (half - 1));
-      const int j1 = j0 + half;
-      const uint32_t wi = w[base + i];
-      const uint32_t wshi = wsh[base + i];
-      if (kInverse) {
-        const uint32_t a = s[j0];
-        const uint32_t c = s[j1];
-        s[j0] = add_mod(a, c, q);
-        s[j1] = mul_shoup(sub_mod(a, c, q), wi, wshi, q);
-      } else {
-        const uint32_t u = s[j0];
-        const uint32_t wv = mul_shoup(s[j1], wi, wshi, q);
-        s[j0] = add_mod(u, wv, q);
-        s[j1] = sub_mod(u, wv, q);
-      }
-    }
-    __syncthreads();
-  }
 }
 
 }  // namespace helib

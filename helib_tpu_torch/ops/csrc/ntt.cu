@@ -19,9 +19,10 @@
 // of the staged network's 15, Harvey-lazy butterflies instead of full
 // reductions, x read by the first composite and out written by the last
 // with no copy loop (16-byte vectors where a thread's words are
-// consecutive).  Sizes: one CTA a row up to n = 16384, at n = 32768 (the
-// CKKS m=65536 path) the kNtt15* configuration chosen on the H100, and at
-// n = 65536 (m = 131072) K3's cluster of 4 CTAs of 64 KB a row.  The bound
+// consecutive).  Sizes: one CTA of 512 threads a row up to n = 16384; at
+// n = 32768 (the CKKS m=65536 path) one CTA of 1024 threads a row, the
+// fastest of the candidates PERF.md lists; at n = 65536 (m = 131072) K3's
+// cluster of 4 CTAs of 64 KB a row.  The bound
 // (chip_smoke.py ntt_bound_ms) is the card's memory: 8 bytes a word against
 // about 1.5 log2 n 32-bit multiplies.
 
@@ -40,10 +41,9 @@ int helib_ntt_launch(const void* x, void* out, long long rows, int log_n,
                                          q, inverse, stream);
 }
 
-// The number of clusters of the n = 2^log_n kernel (log_n = 15 or 16) the
-// card can hold at once (cudaOccupancyMaxActiveClusters, forward) in
-// *clusters; returns the CUDA error code.  0 clusters means the launch
-// cannot run on this card.
+// The number of clusters (CTAs, where a row is one CTA) of the
+// n = 2^log_n kernel the card can hold at once (forward) in *clusters;
+// returns the CUDA error code.  0 means the launch cannot run on this card.
 int helib_ntt_max_clusters(int log_n, int* clusters) {
   return helib::NttRows<helib::kForward, helib::kMaxK>::max_clusters(
       log_n, clusters);

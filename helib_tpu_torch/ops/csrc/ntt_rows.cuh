@@ -21,8 +21,8 @@
 // [3, P, n] row r uses: RowMajor (K1, K5), AuxMajor (K3) and PrimeRows (K2,
 // K4) below.
 //
-// Design.  A staged radix-2 network (common.cuh ntt_stages, which K1-K3
-// ran before) makes every one of the log2 n stages a shared-memory round
+// Design.  A staged radix-2 network (K1-K3's first design; probes.cu
+// stage_range) makes every one of the log2 n stages a shared-memory round
 // trip of the row and a __syncthreads(); the cost probes (probes.cu) put
 // such a stage at about 3x the same butterflies held in registers.  Here the
 // stages run as register composites (composite.cuh) under the port's
@@ -62,7 +62,7 @@
 // schedule(14, K).
 //
 // Occupancy, chosen on the H100 among the candidates PERF.md lists (all
-// bit-identical), and fixed below (kRow*, kCluster*):
+// bit-identical), and fixed below (kRow*, kCluster*, kNtt15*):
 //   * one CTA a row: 512 threads, __launch_bounds__ minimum 2 CTAs an SM
 //     (64 registers) and the default shared-memory carveout.  At n = 16384
 //     that is K5's time; forcing the largest carveout cost 7 % (the L1 that
@@ -72,7 +72,11 @@
 //     3 CTAs an SM (92 clusters resident), 11 % faster than the best 2-CTA
 //     cluster (1024 threads, 66 clusters resident) and 22 % than 512-thread
 //     2-CTA clusters (K3);
-//   * the NTT at n = 32768 (K2 and K4 on the CKKS m=65536 path): kNtt15*.
+//   * the NTT at n = 32768 (K2 and K4 on the CKKS m=65536 path): one CTA a
+//     row of 1024 threads (64 registers, one 128 KB row an SM).  The other
+//     candidates took 3 % (4-CTA clusters of 32 KB quarters, 256 threads,
+//     4 CTAs an SM) to 40 % (2-CTA clusters of 64 KB halves, 256 threads,
+//     3 CTAs an SM, 198 rows resident) longer; one CTA of 512 threads 11 %.
 //
 // Bounds (chip_smoke.py conv_bound_ms, ntt_bound_ms): the convolution moves
 // x in and out (8n bytes a row) and its khat and khat_sh rows (8n bytes)
@@ -106,9 +110,9 @@ constexpr int kRowMinBlocks = 2;
 constexpr int kClusterSize = 4;
 constexpr int kClusterThreads = 256;
 constexpr int kClusterMinBlocks = 3;
-constexpr int kNtt15Cluster = 2;
-constexpr int kNtt15Threads = 256;
-constexpr int kNtt15MinBlocks = 3;
+constexpr int kNtt15Cluster = 1;
+constexpr int kNtt15Threads = 1024;
+constexpr int kNtt15MinBlocks = 1;
 
 // The k of composite 0 of schedule(log_n, K); composite c > 0 covers
 // stages [first + (c - 1) K, first + c K).
@@ -427,21 +431,33 @@ struct Rows {
   }
 
   // How many clusters of this configuration at 2^log_n words the card holds
-  // at once (cudaOccupancyMaxActiveClusters).
+  // at once (cudaOccupancyMaxActiveClusters; with one CTA a row, CTAs).
   static int max_clusters(int log_n, int* clusters) {
-    static_assert(kCluster > 1, "a cluster configuration");
     cudaLaunchAttribute attr;
     const cudaLaunchConfig_t cfg = config(kCluster, log_n, nullptr, &attr);
     cudaError_t err = prepare(cfg);
     if (err != cudaSuccess) return static_cast<int>(err);
-    return static_cast<int>(
-        cudaOccupancyMaxActiveClusters(clusters, kernel(), &cfg));
+    if constexpr (kCluster > 1) {
+      return static_cast<int>(
+          cudaOccupancyMaxActiveClusters(clusters, kernel(), &cfg));
+    } else {
+      int per_sm = 0, dev = 0, sms = 0;
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, kernel(), kThreads, cfg.dynamicSmemBytes);
+      if (err == cudaSuccess) err = cudaGetDevice(&dev);
+      if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+      *clusters = per_sm * sms;
+      return static_cast<int>(err);
+    }
   }
 };
 
 // The power-of-2 NTT of K2 (K = 3) and K4 (K = its composite cap) in mode
-// kForward or kInverse on the shipped configuration of its size: one CTA a
-// row up to n = 16384, kNtt15* at n = 32768, K3's cluster at n = 65536.
+// kForward or kInverse on the shipped configuration of its size: one CTA
+// of 512 threads a row up to n = 16384, one of 1024 (kNtt15*) at
+// n = 32768, K3's 4-CTA cluster at n = 65536.
 // w/wsh are the flat tables of that direction.
 template <int kMode, int K>
 struct NttRows {
@@ -468,12 +484,14 @@ struct NttRows {
                          nullptr, nullptr, q, s);
   }
 
-  // The clusters of the n = 2^log_n configuration the card holds at once
-  // (log_n = 15 or 16).
+  // The clusters (CTAs, with one CTA a row) of the configuration of
+  // n = 2^log_n the card holds at once.
   static int max_clusters(int log_n, int* clusters) {
+    if (log_n < 3 || log_n > 16)
+      return static_cast<int>(cudaErrorInvalidValue);
     if (log_n == 16) return N16::max_clusters(log_n, clusters);
     if (log_n == 15) return N15::max_clusters(log_n, clusters);
-    return static_cast<int>(cudaErrorInvalidValue);
+    return Small::max_clusters(log_n, clusters);
   }
 };
 

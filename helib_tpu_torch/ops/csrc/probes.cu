@@ -144,7 +144,8 @@ p1_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
 
 // Stages [lo, hi) of the staged transform of helib_tpu/ops/ntt.py on the
 // row s, forward (Cooley-Tukey, ascending) or Gentleman-Sande (descending)
-// with the same table: common.cuh's ntt_stages on a range of stages.
+// with the same table: the staged network K1-K3 ran before their register
+// composites, on a range of stages.
 template <bool kInverse>
 __device__ __forceinline__ void stage_range(uint32_t* s, int log_n, int lo,
                                             int hi,

@@ -30,7 +30,7 @@ import ctypes
 
 from .ntt import ntt_pow2_fwd, ntt_pow2_inv
 from .ntt2 import ntt_v2, ntt2_cuda, ntt2_plain
-from .rows import MAX_LOG_N, launch_ntt, max_clusters
+from .rows import launch_ntt, max_clusters
 
 
 def ntt_plain(x, t, inverse: bool):
@@ -63,8 +63,7 @@ def ntt(x, t, inverse: bool):
     return ntt_plain(x, t, inverse)
 
 
-def ntt_max_clusters(device, log_n: int = MAX_LOG_N) -> int:
-    """How many clusters of K2's kernel at n = 2^log_n (15 or 16) the card
-    holds at once (cudaOccupancyMaxActiveClusters); 0 means it cannot
-    launch."""
+def ntt_max_clusters(device, log_n: int) -> int:
+    """How many clusters (CTAs, where a row is one CTA) of K2's kernel at
+    n = 2^log_n the card holds at once; 0 means it cannot launch."""
     return max_clusters("ntt", device, ctypes.c_int(log_n))

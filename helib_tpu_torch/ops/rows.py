@@ -20,7 +20,7 @@ CTA_MAX_LOG_N = 15   # 2^15 words = 128 KB of shared memory, within one CTA
 MAX_LOG_N = 16       # 2^16 words: a cluster of 4 CTAs a row (ntt_rows.cuh)
 
 
-def log2_of(name: str, n: int, max_log_n: int) -> int:
+def _log2_of(name: str, n: int, max_log_n: int) -> int:
     """log2 n, or ValueError unless n is a power of two in
     [2^MIN_LOG_N, 2^max_log_n]."""
     log_n = n.bit_length() - 1
@@ -45,7 +45,7 @@ def launch_rows(name: str, x, aux, khat, khat_sh, max_log_n: int,
     contiguous, on the GPU), `extra` ctypes scalars after the tables;
     returns the output.  The layout check is the caller's."""
     n, P = x.shape[-1], x.shape[-2]
-    log_n = log2_of(name, n, max_log_n)
+    log_n = _log2_of(name, n, max_log_n)
     tabs = [aux["tw_all"], aux["tw_all_sh"], aux["itw_all"],
             aux["itw_all_sh"]]
     check_tensors(name, x.device,
@@ -71,7 +71,7 @@ def launch_ntt(name: str, x, flat, q, inverse: bool, extra: tuple = ()):
         raise ValueError(f"{name} kernel: x must be [..., P, n], got "
                          f"{tuple(x.shape)}")
     n, P = x.shape[-1], x.shape[-2]
-    log_n = log2_of(name, n, MAX_LOG_N)
+    log_n = _log2_of(name, n, MAX_LOG_N)
     keys = ("itw_all", "itw_all_sh") if inverse else ("tw_all", "tw_all_sh")
     tabs = [flat[k] for k in keys]
     check_tensors(name, x.device,
@@ -87,8 +87,8 @@ def launch_ntt(name: str, x, flat, q, inverse: bool, extra: tuple = ()):
 
 def max_clusters(name: str, device, *args) -> int:
     """helib_<name>_max_clusters(*args, &clusters) of csrc/<name>.cu: how
-    many clusters of a cluster configuration the card holds at once
-    (cudaOccupancyMaxActiveClusters); 0 means it cannot launch."""
+    many clusters (CTAs, where a row is one CTA) of a configuration the
+    card holds at once; 0 means it cannot launch."""
     lib = load(name)
     clusters = ctypes.c_int(0)
     with torch.cuda.device(device):

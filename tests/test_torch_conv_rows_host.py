@@ -106,6 +106,20 @@ template <class F> cudaError_t cudaOccupancyMaxActiveClusters(
   *n = 1;
   return cudaSuccess;
 }
+template <class F> cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+    int* n, F, int, size_t) {
+  *n = 1;
+  return cudaSuccess;
+}
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaGetDevice(int* d) {
+  *d = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 1;
+  return cudaSuccess;
+}
 
 // Runs the grid cluster by cluster, every thread of a cluster at once.
 template <class... K, class... A>
