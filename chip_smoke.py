@@ -63,7 +63,19 @@ Phases, in order; any failure exits non-zero:
      rows of 16384 words, 50 chained applications, and P2's three phases on
      160 rows of n = 16384, 100 chained, each held to its plain version bit
      for bit; us per application and per row beside each bound, and K1's
-     time per row at n = 16384.
+     time per row at n = 16384;
+ 12. the BGV slot layer at m=31775, p=2, bits=600, c=3, mvec=(31, 25, 41)
+     (HElib's small thin-bootstrapping size: 1200 slots of GF(2^20),
+     hypercube [30, 20, 2], the last dimension bad; B = 65536), with
+     SecKey(seed=141, hwt=64) and every rotation matrix minted before the
+     ops: encrypt, multiply, add_constant(encode_ptxt), a FatEncodedPtxt's
+     build and mul_by_constant, rotate by 1 and by 41, shift_1d on the bad
+     dimension, total_sums and replicate, each through K3 and no other
+     kernel and decrypted exactly to the PtxtBGV oracle; the rotate by 1
+     held against the plain K3 and, with mul_by_constant, against the port
+     on the host CPU; setup s, host encode/decode ms, cold and warm ms and
+     K3 launches per op, the device masks cached, peak memory and K3's row
+     on the rotate's inputs.
 Each path, each op and the probe run is driven with the launch counts set to
 0 just before it and read just after.  The last three lines are the card's
 name and power limit as nvidia-smi prints them, the kernel table as JSON, and
@@ -72,6 +84,7 @@ name and power limit as nvidia-smi prints them, the kernel table as JSON, and
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -607,24 +620,13 @@ def host_ms(fn, reps: int) -> float:
     return (time.time() - t0) / reps * 1e3
 
 
-def rotate_on_host(dev):
-    """The rotate at m=32003 and HOST_BITS on the card and through the port
-    on the host CPU, with the card's keys carried over by convert.py (the
-    matrix of X -> X^3 included): bit-identical."""
+def keys_on_host(ctx_cpu, sk):
+    """The card's secret key, its matrices and its public key carried over
+    to a host-CPU context by convert.py."""
     from helib_tpu_torch import convert
-    from helib_tpu_torch.context import Context
-    from helib_tpu_torch.keys import SecKey, PubKey
     from helib_tpu_torch.ops.modops import to_host
-    from helib_tpu_torch.pipeline import make_automorph_relin
 
-    params = {**BIG, "bits": HOST_BITS}
-    ctx = Context(**params, device=dev)
-    sk = SecKey(ctx, seed=BIG_SEED)
-    pk = PubKey(sk)
-    fn, args = make_automorph_relin(ctx, sk)
-    out = fn(*args)
-    t0 = time.time()
-    ctx_cpu = Context(**params, device="cpu")
+    pk = sk.pubkey
     sk_cpu = convert.seckey_from_arrays(
         ctx_cpu, [{"coeffs": s["coeffs"], "bound": s["bound"],
                    "full": to_host(s["full"])} for s in sk.skeys],
@@ -633,6 +635,26 @@ def rotate_on_host(dev):
         ctx_cpu, [((h.powS, h.powX, h.keyID), to_host(d))
                   for h, d in pk.enc_key], pk.enc_noise, pk.sk_bound,
         sk_cpu.matrices)
+    return sk_cpu
+
+
+def rotate_on_host(dev):
+    """The rotate at m=32003 and HOST_BITS on the card and through the port
+    on the host CPU, with the card's keys carried over by convert.py (the
+    matrix of X -> X^3 included): bit-identical."""
+    from helib_tpu_torch.context import Context
+    from helib_tpu_torch.keys import SecKey, PubKey
+    from helib_tpu_torch.pipeline import make_automorph_relin
+
+    params = {**BIG, "bits": HOST_BITS}
+    ctx = Context(**params, device=dev)
+    sk = SecKey(ctx, seed=BIG_SEED)
+    PubKey(sk)
+    fn, args = make_automorph_relin(ctx, sk)
+    out = fn(*args)
+    t0 = time.time()
+    ctx_cpu = Context(**params, device="cpu")
+    sk_cpu = keys_on_host(ctx_cpu, sk)
     fn_cpu, _ = make_automorph_relin(ctx_cpu, sk_cpu)
     t1 = time.time()
     host = fn_cpu(*[a.cpu() for a in args])
@@ -792,6 +814,250 @@ def perop_path(dev, card: str) -> dict:
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
         "card": card}))
     return row
+
+
+# ---------------------------------------------------------------------------
+# the BGV slot layer at m=31775 (K3)
+# ---------------------------------------------------------------------------
+
+# HElib's small thin-bootstrapping parameters (benchmarks/bgv_thinboot.cpp,
+# as tests/test_bootstrap.py cites them): 1200 slots of GF(2^20), hypercube
+# [30, 20, 2] with the last dimension bad, B = 65536
+SLOTS = dict(m=31775, p=2, r=1, bits=600, c=3, mvec=(31, 25, 41))
+SLOTS_SEED, SLOTS_HWT, SLOTS_DATA_SEED = 141, 64, 143
+SLOTS_HYPERCUBE = ([30, 20, 2], [True, True, False])
+WARM_REPS = 3
+
+
+def timed(f, reps: int = 1):
+    """(f(), host ms, CUDA-event ms): the mean of `reps` runs of f, ended
+    by a synchronize."""
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    a.record()
+    for _ in range(reps):
+        out = f()
+    b.record()
+    torch.cuda.synchronize()
+    return out, (time.time() - t0) * 1e3 / reps, a.elapsed_time(b) / reps
+
+
+def ea_on_host(ea, ctx_cpu):
+    """The same EncryptedArray over a host-CPU context: the slot tables
+    depend on (m, p, r, mvec) only, so they are shared; of the mask cache
+    only the host encodings are kept (the device masks are rebuilt on the
+    host when first used)."""
+    out = copy.copy(ea)
+    out.ctx = ctx_cpu
+    out._mask_cache = {k: v for k, v in ea._mask_cache.items()
+                       if isinstance(v, np.ndarray)}
+    return out
+
+
+def fat_masks(ea) -> tuple[int, int]:
+    """(device masks built, their bytes) in the EA's cache."""
+    from helib_tpu_torch.encoded import FatEncodedPtxt
+    fats = [v._full for v in ea._mask_cache.values()
+            if isinstance(v, FatEncodedPtxt) and v._full is not None]
+    return len(fats), sum(t.numel() * t.element_size() for t in fats)
+
+
+def slot_path(dev, card: str) -> dict:
+    """The slot layer at m=31775 through K3 alone: each op driven with the
+    counts reset before it and read after, its decrypt held to the PtxtBGV
+    oracle exactly; the rotate by 1 held against the plain K3 and, with
+    mul_by_constant(fat), against the port on the host CPU; then timed
+    warm, and K3's row on the rotate's own inputs."""
+    from helib_tpu_torch import convert, ksstrategy
+    from helib_tpu_torch.algos.replicate import replicate
+    from helib_tpu_torch.algos.sums import total_sums
+    from helib_tpu_torch.context import Context
+    from helib_tpu_torch.ea import EncryptedArray
+    from helib_tpu_torch.encoded import FatEncodedPtxt
+    from helib_tpu_torch.keys import SecKey, PubKey
+    from helib_tpu_torch.ops import conv as convmod
+    from helib_tpu_torch.ptxt import PtxtBGV
+
+    torch.cuda.reset_peak_memory_stats()
+    setup = {}
+    t0 = time.time()
+    ctx = Context(**SLOTS, scheme="bgv", device=dev)
+    setup["context_s"] = time.time() - t0
+    t0 = time.time()
+    sk = SecKey(ctx, seed=SLOTS_SEED, hwt=SLOTS_HWT)
+    pk = PubKey(sk)
+    ksstrategy.add_relin_matrix(sk)
+    ksstrategy.add_some_1d_matrices(sk)
+    torch.cuda.synchronize()
+    setup["keys_s"] = time.time() - t0
+    t0 = time.time()
+    ea = EncryptedArray(ctx)
+    setup["ea_s"] = time.time() - t0
+    pal = ctx.pal
+    print(f"slots: {ctx!r}; d={ea.d}, {ea.nslots} slots, fast tables "
+          f"{bool(ea._fast)}; {len(sk.matrices)} key-switching matrices; "
+          f"setup {json.dumps(setup)}")
+    if (pal.orders, pal.native) != SLOTS_HYPERCUBE:
+        raise AssertionError(f"slots: hypercube {pal.orders} {pal.native}")
+
+    rng = np.random.default_rng(SLOTS_DATA_SEED)
+    a = [int(v) for v in rng.integers(0, ea.pr, ea.nslots)]
+    b = [rng.integers(0, ea.pr, ea.d) for _ in range(ea.nslots)]
+    pa, pb = PtxtBGV(ea, a), PtxtBGV(ea, b)
+    host = {}
+    poly_b, host["encode_ms"], _ = timed(lambda: ea.encode(b))
+    dec, host["decode_ms"], _ = timed(lambda: ea.decode(poly_b))
+    if PtxtBGV(ea, dec) != pb:
+        raise AssertionError("slots: decode(encode(b)) != b")
+
+    counts, ms, total = {}, {}, {}
+    minted = len(sk.matrices)
+
+    def check(name, ct, want):
+        """The decrypt against the oracle: equal coefficient vectors are
+        equal slots (encode is a bijection onto the polys mod Phi_m)."""
+        if not np.array_equal(sk.decrypt_bgv(ct), ea.encode(want.slots)):
+            raise AssertionError(f"slots {name}: decrypt oracle failed")
+
+    def run(name, f, want=None, warm: bool = True):
+        """f() once with the counts reset (K3 alone, or nothing), its
+        decrypt checked against the oracle; then WARM_REPS times more,
+        warm (the counts are of one run)."""
+        reset_launches()
+        out, cold_h, cold_e = timed(f)
+        c = read_launches()
+        if any(v for key, v in c.items() if key != "conv_aux"):
+            raise AssertionError(f"slots {name}: launched {c}")
+        for key, v in c.items():
+            total[key] = total.get(key, 0) + v
+        if want is not None:
+            check(name, out, want)
+        ms[name] = {"cold_host": cold_h, "cold_event": cold_e}
+        counts[name] = {"cold": c["conv_aux"]}
+        if warm:
+            reset_launches()
+            _, ms[name]["host"], ms[name]["event"] = timed(f, WARM_REPS)
+            counts[name]["warm"] = read_launches()["conv_aux"] // WARM_REPS
+        return out
+
+    prod = pa.multiply(pb)
+    ca = run("encrypt", lambda: ea.encrypt(a, pk, rng), pa)
+    # one decrypt decoded in full, against the oracle slot by slot
+    if PtxtBGV.decode(ea, sk.decrypt_bgv(ca)) != pa:
+        raise AssertionError("slots: decode(decrypt(encrypt(a))) != a")
+    cb = ea.encrypt(b, pk, rng)
+    c = run("multiply", lambda: ca.multiply(cb, sk), prod)
+    enc_b = ea.encode_ptxt(b)
+    want = prod.add(pb)
+    c2 = run("add_constant", lambda: _plus(c, enc_b), want)
+    fat = FatEncodedPtxt(ctx, ea.encode(a), space=ea.pr)
+    run("fat_build", lambda: fat.rt(ctx.L, True), warm=False)
+    want = want.multiply(pa)
+    c3 = run("mul_by_constant", lambda: _times(c2, fat), want)
+    mask_cold = fat_masks(ea)
+    r1 = run("rotate1", lambda: ea.rotate(c3.copy(), 1, sk), want.rotate(1))
+    run("rotate41", lambda: ea.rotate(c3.copy(), 41, sk), want.rotate(41))
+    run("shift_1d", lambda: ea.shift_1d(c3.copy(), 2, 1, sk),
+        _shift_1d(want, 2, 1))
+    masks_before = fat_masks(ea)
+    run("total_sums", lambda: total_sums(ea, c3.copy(), sk),
+        want.total_sums())
+    masks = {"before_rotations": mask_cold, "before_total_sums":
+             masks_before, "after_total_sums": fat_masks(ea)}
+    rep = want.copy()
+    rep.slots = [want.slots[7].copy() for _ in want.slots]
+    run("replicate", lambda: replicate(ea, c3.copy(), 7, sk), rep)
+    expect_only(total, "conv_aux", "slot phase")
+    if len(sk.matrices) != minted:
+        raise AssertionError(f"slots: {len(sk.matrices) - minted} matrices "
+                             f"minted during the ops")
+    print(f"slots: K3 launches per op {json.dumps(counts)}; matrices "
+          f"minted during the ops: {len(sk.matrices) - minted}")
+    for name, v in ms.items():
+        print(f"slots: {name} " + ", ".join(f"{k} {x:.3f} ms"
+                                            for k, x in v.items()))
+
+    # the rotate by 1 with the plain K3 (its masks rebuilt plain too)
+    saved = ea._mask_cache
+    ea._mask_cache = {k: v for k, v in saved.items()
+                      if isinstance(v, np.ndarray)}
+    with swap(convmod, "conv_aux", convmod.conv_aux_plain):
+        reset_launches()
+        ref = ea.rotate(c3.copy(), 1, sk)
+        torch.cuda.synchronize()
+        if any(read_launches().values()):
+            raise AssertionError("reference run launched a kernel")
+    ea._mask_cache = saved
+    same_parts(r1, ref, "rotate by 1: kernel path != plain path")
+    print("slots: rotate by 1 bit-identical to the plain-K3 chain")
+
+    # the rotate by 1 and mul_by_constant(fat) on the host CPU
+    t0 = time.time()
+    ctx_cpu = Context(**SLOTS, scheme="bgv", device="cpu")
+    sk_cpu = keys_on_host(ctx_cpu, sk)
+    ea_cpu = ea_on_host(ea, ctx_cpu)
+    c2_cpu = convert.ctxt_from_arrays(ctx_cpu, sk_cpu.pubkey,
+                                      **convert.ctxt_arrays(c2))
+    c3_cpu = convert.ctxt_from_arrays(ctx_cpu, sk_cpu.pubkey,
+                                      **convert.ctxt_arrays(c3))
+    t1 = time.time()
+    same_parts(c3, _times(c2_cpu, FatEncodedPtxt(ctx_cpu, ea.encode(a),
+                                                 space=ea.pr)),
+               "mul_by_constant(fat): GPU != CPU port")
+    t2 = time.time()
+    same_parts(r1, ea_cpu.rotate(c3_cpu, 1, sk_cpu),
+               "rotate by 1: GPU != CPU port")
+    print(f"slots: rotate by 1 and mul_by_constant(fat) bit-identical to "
+          f"the port on the host CPU at bits={ctx.bits} (setup "
+          f"{t1 - t0:.1f} s, mul {t2 - t1:.1f} s, rotate "
+          f"{time.time() - t2:.1f} s on {torch.get_num_threads()} threads)")
+
+    profile(lambda: ea.rotate(c3.copy(), 1, sk), (),
+            "bgv slots m=31775 rotate by 1, warm")
+    row = kernel_row(lambda: ea.rotate(c3.copy(), 1, sk), (),
+                     {"conv_aux": counts["rotate1"]["warm"]},
+                     "conv_aux")
+    print(json.dumps({"metric": "torch_cuda_bgv_slots_m31775_b600",
+                      "setup_s": setup, "host_ms": host, "ms_per_op": ms,
+                      "conv_aux_launches_per_op": counts,
+                      "fat_masks_count_bytes": masks,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+                      "conv_aux_row_rotate1": row, "card": card}))
+    return row
+
+
+def _plus(ct, c):
+    out = ct.copy()
+    out.add_constant(c)
+    return out
+
+
+def _times(ct, c):
+    out = ct.copy()
+    out.mul_by_constant(c)
+    return out
+
+
+def _shift_1d(pt, dim: int, amt: int):
+    """PtxtBGV oracle of EncryptedArray.shift_1d by amt > 0: rotate along
+    dim, zero the slots whose coordinate came in from below."""
+    pal = pt.ea.ctx.pal
+    out = pt.rotate_1d(dim, amt)
+    for s in range(pt.ea.nslots):
+        if pal.coords(s)[dim] < amt:
+            out.slots[s] = np.zeros(pt.ea.d, dtype=np.int64)
+    return out
+
+
+def same_parts(a, b, what: str):
+    """Equal prime sets and residues, part by part, on any devices."""
+    if (a.k, a.special, [h for h, _ in a.parts]) != (
+            b.k, b.special, [h for h, _ in b.parts]) or not all(
+            torch.equal(x.cpu(), y.cpu())
+            for (_, x), (_, y) in zip(a.parts, b.parts)):
+        raise AssertionError(f"slots {what}")
 
 
 # ---------------------------------------------------------------------------
@@ -1345,6 +1611,8 @@ def main() -> int:
     kernels["conv_aux"] = perop_path(dev, card)
     torch.cuda.empty_cache()
     kernels["p1"], kernels["p2"] = probe_path(dev, card)
+    torch.cuda.empty_cache()
+    slot_path(dev, card)
     print(f"chip_smoke: {time.time() - start:.1f} s of command time after "
           f"start-up")
     print(card)

@@ -83,6 +83,15 @@ class EncryptedArrayCKKS:
         err = self.ctx.noise_uniform(math.log2(0.5))
         return rounded, scale, max(mag, 2.0 ** -40), err
 
+    def encode_ptxt(self, slots, scale: int | None = None):
+        """Scheme-tagged CKKS encoding (HElib's EncryptedArrayCx::encode ->
+        EncodedPtxt with mag/scale, EncodedPtxt.h:142,312), for
+        Ctxt.mul_by_constant and FatEncodedPtxt."""
+        from .encoded import EncodedPtxt
+        coeffs, scale_v, mag, _ = self.encode(slots, scale)
+        return EncodedPtxt(np.array([int(c) for c in coeffs]),
+                           mag=mag, scale=float(scale_v))
+
     def decode(self, coeffs, scale: Fraction) -> np.ndarray:
         vals = np.array([float(Fraction(int(c)) / scale) for c in coeffs],
                         dtype=np.float64)

@@ -72,6 +72,7 @@ class Context:
     stdev: float = 3.2      # fresh-noise Gaussian stdev
     scale: float = 10.0     # high-probability bound multiplier
     device: torch.device | str = "cuda"
+    mvec: tuple | None = None  # factor-aligned hypercube (bootstrappable ctx)
 
     pal: PAlgebra = field(init=False)
     qs: np.ndarray = field(init=False)       # ctxt primes, [L] uint32
@@ -85,7 +86,8 @@ class Context:
         if self.scheme not in ("bgv", "ckks"):
             raise InvalidArgument(f"unknown scheme {self.scheme!r}")
         self.device = resolve_device(self.device)
-        self.pal = PAlgebra(self.m, self.p if self.scheme == "bgv" else -1)
+        self.pal = PAlgebra(self.m, self.p if self.scheme == "bgv" else -1,
+                            mvec=tuple(self.mvec) if self.mvec else None)
         n_ctxt = max(2, math.ceil(self.bits / (PRIME_BITS - 0.1)))
         # digits partition: c contiguous groups, as equal as possible
         base, rem = divmod(n_ctxt, self.c)
@@ -194,6 +196,9 @@ class Context:
     def noise_small(self, prob: float = 0.5, deg: int | None = None) -> float:
         deg = self.phi_m if deg is None else deg
         return math.log2(self.scale * math.sqrt(deg * prob))
+
+    def noise_hwt(self, hwt: int) -> float:
+        return math.log2(self.scale * math.sqrt(hwt))
 
     def eff_stdev(self) -> float:
         """Fresh-error stdev; scaled by sqrt(m) for non-pow2 m."""

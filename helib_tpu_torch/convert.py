@@ -26,7 +26,8 @@ from .keys import SecKey, PubKey, KSMatrix, SKHandle
 from .ops.modops import to_device, to_host
 from .exceptions import InvalidArgument
 
-PARAM_KEYS = ("m", "p", "r", "bits", "c", "scheme", "stdev", "scale")
+PARAM_KEYS = ("m", "p", "r", "bits", "c", "scheme", "stdev", "scale",
+              "mvec")
 
 
 def context_params(ctx) -> dict:

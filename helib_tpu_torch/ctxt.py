@@ -3,8 +3,10 @@
 The noise state machine follows helib_tpu's formulas exactly; magnitudes are
 log2-domain Python floats, the CKKS scale `ratFactor` an exact Fraction.
 Parts are [..., P, N] tensors, so one Ctxt can carry a batch of ciphertexts
-in its leading dims.  Constant multiplies and the bootstrapping helpers come
-with later slices.
+in its leading dims.  `copy()` shares the part tensors, so every op builds
+new tensors and none writes into a part in place.  Constants come as host
+coefficient vectors, EncodedPtxt or device-resident FatEncodedPtxt
+(encoded.py).  The bootstrapping helpers come with a later slice.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 from .context import Context, log2_add, log2_sum, NEG_INF
 from .dcrt import (rt_add, rt_neg, rt_mul, rt_mul_scalar, rt_automorph,
                    rt_scale_down, rt_add_special_and_scale,
-                   rt_break_into_digits)
+                   rt_break_into_digits, small_coeffs_to_rt)
 from .keys import SKHandle, PubKey, KSMatrix, balanced_int, get_ks_matrix
 from .ops.modops import mul_mod, add_mod
 from .nt.numbth import inv_mod
@@ -255,6 +257,92 @@ class Ctxt:
         self.parts = [(h, rt_neg(self.ctx, d, self.k, self.special))
                       for h, d in self.parts]
         return self
+
+    # ------------------------------------------------------------ constants
+    def mul_by_constant(self, c, mag: float | None = None):
+        """Constant multiply (HElib's Ctxt::multByConstant overloads):
+        an EncodedPtxt (host encoding), a FatEncodedPtxt (device-resident,
+        sliced per prime set), or a bare coefficient vector.  `mag`, if
+        given, is the log2 noise growth to charge instead of the BGV
+        bound."""
+        from .encoded import EncodedPtxt, FatEncodedPtxt
+        if isinstance(c, FatEncodedPtxt):
+            return self.mul_constant_fat(c, mag)
+        if isinstance(c, EncodedPtxt):
+            return self.mul_constant_poly(c.coeffs, mag)
+        return self.mul_constant_poly(c, mag)
+
+    def add_constant(self, c):
+        """Constant add (HElib's Ctxt::addConstant overloads)."""
+        from .encoded import EncodedPtxt, FatEncodedPtxt
+        if isinstance(c, FatEncodedPtxt):
+            return self.add_constant_fat(c)
+        if isinstance(c, EncodedPtxt):
+            return self.add_constant_poly(c.coeffs)
+        return self.add_constant_poly(c)
+
+    def _q_factor(self) -> int:
+        """(Q mod p^r) * intFactor mod p^r over the live prime set: the
+        factor a plaintext added to part 0 is scaled by."""
+        pr, Q = self.ptxt_space, 1
+        for q in self.ctx.primes_of(self.k, self.special):
+            Q *= int(q)
+        return (Q % pr) * self.intFactor % pr
+
+    def add_constant_poly(self, coeffs: np.ndarray):
+        """Add an encoded plaintext polynomial (BGV; HElib's
+        Ctxt::addConstant).  coeffs: int vector mod p^r, deg < phi(m)."""
+        ctx, pr = self.ctx, self.ptxt_space
+        fixed = (np.asarray(coeffs, dtype=np.int64) * self._q_factor()) % pr
+        fixed -= (fixed > pr // 2) * pr
+        pt = small_coeffs_to_rt(ctx, fixed, self.k, self.special)
+        i = self._find_part(SKHandle(0, 1, 0))
+        self.parts[i] = (self.parts[i][0],
+                         rt_add(ctx, self.parts[i][1], pt, self.k,
+                                self.special))
+        self.noise = log2_add(self.noise, ctx.noise_mod(pr))
+
+    def mul_constant_poly(self, coeffs: np.ndarray,
+                          mag: float | None = None):
+        """Multiply by an encoded plaintext poly (balanced lift mod p^r)."""
+        ctx, pr = self.ctx, self.ptxt_space
+        fixed = np.asarray(coeffs, dtype=np.int64) % pr
+        fixed -= (fixed > pr // 2) * pr
+        pt = small_coeffs_to_rt(ctx, fixed, self.k, self.special)
+        self.parts = [(h, rt_mul(ctx, d, pt, self.k, self.special))
+                      for h, d in self.parts]
+        self.noise += mag if mag is not None else ctx.noise_mod(pr)
+
+    def mul_constant_fat(self, fat, mag: float | None = None):
+        """Multiply by a device-resident encoded constant (HElib's
+        Ctxt::multByConstant(FatEncodedPtxt)): no host encode or transform
+        here -- the eval tensor is sliced from the constant's full-row
+        transform (encoded.FatEncodedPtxt)."""
+        ctx = self.ctx
+        pt = fat.rt(self.k, self.special)
+        self.parts = [(h, rt_mul(ctx, d, pt, self.k, self.special))
+                      for h, d in self.parts]
+        space = fat.space if fat.space is not None else self.ptxt_space
+        self.noise += mag if mag is not None else ctx.noise_mod(space)
+
+    def add_constant_fat(self, fat):
+        """Add a device-resident encoded constant (BGV).  The Q*intFactor
+        correction of add_constant_poly depends on the live prime set, so it
+        is applied as a scalar multiply of the sliced constant: with no
+        rebalance mod p^r, the |f| growth is charged to the noise (f == 1
+        for p = 2)."""
+        ctx, pr = self.ctx, self.ptxt_space
+        pt = fat.rt(self.k, self.special)
+        f = self._q_factor()
+        f = f - pr if f > pr // 2 else f
+        if f != 1:
+            pt = rt_mul_scalar(ctx, pt, f % pr, self.k, self.special)
+        i = self._find_part(SKHandle(0, 1, 0))
+        self.parts[i] = (self.parts[i][0],
+                         rt_add(ctx, self.parts[i][1], pt, self.k,
+                                self.special))
+        self.noise = log2_add(self.noise,
+                              ctx.noise_mod(pr) + math.log2(max(abs(f), 1)))
 
     # -------------------------------------------------------- multiplication
     def tensor(self, other: "Ctxt"):

@@ -140,6 +140,15 @@ def sample_gaussian(ctx: Context, rng: np.random.Generator):
     return coeffs, ctx.noise_gaussian(sigma)
 
 
+def sample_hwt(ctx: Context, rng: np.random.Generator, hwt: int):
+    """hwt coefficients of +-1 at distinct positions, the rest 0."""
+    N = ctx.n_eval
+    coeffs = np.zeros(N, dtype=np.int64)
+    idx = rng.choice(N, size=min(hwt, N), replace=False)
+    coeffs[idx] = rng.choice([-1, 1], size=len(idx))
+    return coeffs, ctx.noise_hwt(hwt)
+
+
 def _bounded(sampler, ctx: Context, rng, *args, tries: int = 1000):
     """Rejection wrapper: resample until the actual canonical-embedding norm
     is below the sampler's high-probability bound (reference sample.cpp)."""
@@ -161,6 +170,10 @@ def sample_small_bounded(ctx: Context, rng: np.random.Generator):
 
 def sample_gaussian_bounded(ctx: Context, rng: np.random.Generator):
     return _bounded(sample_gaussian, ctx, rng)
+
+
+def sample_hwt_bounded(ctx: Context, rng: np.random.Generator, hwt: int):
+    return _bounded(sample_hwt, ctx, rng, hwt)
 
 
 def sample_uniform_residues(ctx: Context, rng: np.random.Generator,

@@ -25,6 +25,7 @@ from .context import Context, log2_add
 from . import dcrt
 from .dcrt import (rt_add, rt_sub, rt_mul, rt_mul_scalar, rt_automorph,
                    sample_small_bounded, sample_gaussian_bounded,
+                   sample_hwt_bounded,
                    sample_uniform_residues, small_coeffs_to_rt)
 from .ops.modops import to_host
 from .nt.numbth import inv_mod
@@ -85,15 +86,16 @@ def matrix_key(handle: SKHandle, to_key: int = 0):
 
 class SecKey:
     """Secret key(s).  `skeys` is a list of secrets (dicts with `coeffs`,
-    `bound`, `full`); keyID 0 is the main key."""
+    `bound`, `full`); keyID 0 is the main key.  hwt > 0 draws a secret of
+    that Hamming weight (HElib's skHwt, as the bootstrapping contexts use)."""
 
-    def __init__(self, ctx: Context, seed: int = 0):
+    def __init__(self, ctx: Context, seed: int = 0, hwt: int = 0):
         self.ctx = ctx
         self.rng = np.random.default_rng(seed)
         self.skeys: list[dict] = []
         self.matrices: dict = {}
         self.pubkey: PubKey | None = None
-        self.gen_key()
+        self.gen_key(hwt)
 
     @classmethod
     def restore(cls, ctx: Context, skeys: list, matrices: dict,
@@ -111,10 +113,13 @@ class SecKey:
         sk.pubkey = None
         return sk
 
-    def gen_key(self) -> int:
+    def gen_key(self, hwt: int = 0) -> int:
         """Sample and append a secret key; returns its keyID."""
         ctx = self.ctx
-        coeffs, bound = sample_small_bounded(ctx, self.rng)
+        if hwt > 0:
+            coeffs, bound = sample_hwt_bounded(ctx, self.rng, hwt)
+        else:
+            coeffs, bound = sample_small_bounded(ctx, self.rng)
         # secret key resident on ALL rows (ctxt + special)
         full = small_coeffs_to_rt(ctx, coeffs, ctx.L, True)
         self.skeys.append({"coeffs": coeffs, "bound": bound, "full": full})

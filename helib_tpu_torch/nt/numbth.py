@@ -221,3 +221,15 @@ def find_generators(m: int, p: int) -> tuple[list[int], list[int], list[bool]]:
 
 def inv_mod(a: int, m: int) -> int:
     return pow(a, -1, m)
+
+
+def crt_combine(residues: list[int], moduli: list[int]) -> int:
+    """CRT: value mod prod(moduli) with given residues."""
+    q = 1
+    for mi in moduli:
+        q *= mi
+    x = 0
+    for r, mi in zip(residues, moduli):
+        qi = q // mi
+        x += r * qi * inv_mod(qi % mi, mi)
+    return x % q

@@ -1,8 +1,10 @@
 """Structure of (Z/mZ)* and the slot hypercube.
 
 helib_tpu.palgebra, the role of HElib's PAlgebra (include/helib/PAlgebra.h,
-src/PAlgebra.cpp): generators of (Z/mZ)*/<p>, hypercube signature, and
-automorphism index-permutation tables.
+src/PAlgebra.cpp): generators of (Z/mZ)*/<p>, hypercube signature, slot
+representatives, and automorphism index-permutation tables.  With `mvec`
+the hypercube is the factor-aligned one of nt/factoralign.py (one generator
+per factor of m, as the bootstrapping contexts need).
 
 Representation choice (differs from reference): ring elements live in the
 evaluation domain at
@@ -20,7 +22,8 @@ import math
 
 import numpy as np
 
-from .nt.numbth import phi_n, mult_order, find_generators
+from .nt.numbth import phi_n, mult_order, find_generators, factorize
+from .nt.cyclotomic import cyclotomic_poly
 from .exceptions import assert_true
 
 
@@ -28,6 +31,7 @@ from .exceptions import assert_true
 class PAlgebra:
     m: int
     p: int                      # plaintext prime (for CKKS: p irrelevant, use -1)
+    mvec: tuple | None = None   # factor-aligned hypercube (for EvalMap)
     gens: list = field(init=False)
     orders: list = field(init=False)
     native: list = field(init=False)
@@ -37,6 +41,7 @@ class PAlgebra:
     pow2: bool = field(init=False)
     n_eval: int = field(init=False)      # evaluation-domain width (N or m)
     eval_exponents: np.ndarray | None = None  # set by Context for pow2 m
+    aligned: dict | None = None          # factor-aligned structure data
 
     def __post_init__(self):
         m, p = self.m, self.p
@@ -48,11 +53,50 @@ class PAlgebra:
             assert_true(math.gcd(m, p) == 1, "p must be coprime to m")
             self.d = mult_order(p, m)
             self.nslots = self.phi_m // self.d
-            self.gens, self.orders, self.native = find_generators(m, p)
+            if self.mvec is not None:
+                from .nt.factoralign import factor_aligned_structure
+                s = factor_aligned_structure(m, p, list(self.mvec))
+                self.aligned = s
+                self.gens = list(s["gens"])
+                self.orders = list(s["orders"])
+                self.native = list(s["native"])
+            else:
+                self.gens, self.orders, self.native = find_generators(m, p)
         else:  # CKKS
             self.d = 1
             self.nslots = self.phi_m // 2
             self.gens, self.orders, self.native = [], [], []
+
+    # -- hypercube ---------------------------------------------------------
+    def coords(self, slot: int) -> tuple:
+        """Slot index -> hypercube coordinates (row-major over orders)."""
+        cs = []
+        for o in reversed(self.orders):
+            cs.append(slot % o)
+            slot //= o
+        return tuple(reversed(cs))
+
+    def slot_index(self, coords) -> int:
+        s = 0
+        for c, o in zip(coords, self.orders):
+            s = s * o + c
+        return s
+
+    @property
+    def n_factors(self) -> int:
+        return len(factorize(self.m))
+
+    def representatives(self) -> list[int]:
+        """T[slot] = prod g_i^{e_i} mod m, one representative of each coset
+        of <p> in (Z/mZ)*, ordered by hypercube index (HElib's zmsRep)."""
+        reps = []
+        for s in range(self.nslots):
+            cs = self.coords(s)
+            t = 1
+            for g, e in zip(self.gens, cs):
+                t = t * pow(g, e, self.m) % self.m
+            reps.append(t)
+        return reps
 
     # -- evaluation-order bookkeeping -------------------------------------
     def exponents(self) -> np.ndarray:
@@ -86,6 +130,9 @@ class PAlgebra:
         g = pos[tgt]
         assert_true((g >= 0).all(), "automorphism leaves evaluation set")
         return g.astype(np.int32)
+
+    def phim_poly(self) -> np.ndarray:
+        return np.array(cyclotomic_poly(self.m), dtype=object)
 
     def __repr__(self):
         return (f"PAlgebra(m={self.m}, p={self.p}, phi={self.phi_m}, d={self.d}, "

@@ -1,7 +1,7 @@
 """The port's CUDA kernels (K1 conv, K2 ntt, K3 conv_aux, K4 ntt2, K5
 conv2, the probes P1 and P2) and its BGV and CKKS paths (CKKS at m=1024
-and m=131072) on the card, against the plain torch versions and the port
-on the CPU.
+and m=131072) and the BGV slot layer at m=1271 on the card, against the
+plain torch versions and the port on the CPU.
 
 Every test needs an NVIDIA GPU and skips without one.  The file imports no
 JAX, so it also runs where only PyTorch is installed (the conftest, which
@@ -15,8 +15,13 @@ import numpy as np
 import pytest
 import torch
 
+from helib_tpu_torch import ksstrategy
 from helib_tpu_torch.context import Context
-from helib_tpu_torch.keys import SecKey
+from helib_tpu_torch.ea import EncryptedArray
+from helib_tpu_torch.encoded import FatEncodedPtxt
+from helib_tpu_torch.keys import SecKey, PubKey
+from helib_tpu_torch.ops import conv as convmod
+from helib_tpu_torch.ptxt import PtxtBGV
 from helib_tpu_torch.ops import ntt
 from helib_tpu_torch.ops.conv import (AUX_MAX_LOG_N, conv, conv_cuda,
                                       conv_plain, conv_aux, conv_aux_cuda,
@@ -317,3 +322,77 @@ def test_p2_probe_matches_plain(gpu, phase):
     got = probes.p2_cuda(phase, x, *tabs)
     torch.cuda.synchronize()
     assert torch.equal(got, probes.p2_plain(phase, x, *tabs))
+
+
+SLOTS = dict(m=1271, p=2, r=1, bits=120, c=3, mvec=(31, 41))
+
+
+def _slot_keys(ctx):
+    sk = SecKey(ctx, seed=6)
+    PubKey(sk)
+    ksstrategy.add_some_1d_matrices(sk)
+    return sk
+
+
+def test_fat_encoded_ptxt_through_k3_equals_plain(gpu, monkeypatch):
+    """A FatEncodedPtxt's full-row transform (m=1271, B = 4096) through K3,
+    through the plain convolution on the card, and on the host."""
+    ctx = Context(**SLOTS)
+    ea = EncryptedArray(ctx)
+    rng = np.random.default_rng(8)
+    poly = ea.encode([rng.integers(0, 2, ea.d) for _ in range(ea.nslots)])
+    before = (conv_aux_cuda.launches, conv_cuda.launches)
+    got = FatEncodedPtxt(ctx, poly, space=2).rt(ctx.L, True)
+    torch.cuda.synchronize()
+    assert conv_aux_cuda.launches - before[0] == 1
+    assert conv_cuda.launches == before[1]
+    assert got.is_cuda and got.shape == (ctx.L + ctx.S, ctx.n_eval)
+    cpu = FatEncodedPtxt(Context(**SLOTS, device="cpu"), poly, space=2)
+    assert torch.equal(got.cpu(), cpu.rt(ctx.L, True))
+    monkeypatch.setattr(convmod, "conv_aux", convmod.conv_aux_plain)
+    plain = FatEncodedPtxt(ctx, poly, space=2).rt(ctx.L, True)
+    assert conv_aux_cuda.launches - before[0] == 1
+    assert torch.equal(got, plain)
+    assert torch.equal(FatEncodedPtxt(ctx, poly, space=2).rt(3, True),
+                       torch.cat([got[:3], got[ctx.L:]]))
+
+
+def test_slot_rotate_m1271_through_k3_equals_plain_and_cpu(gpu,
+                                                           monkeypatch):
+    """ea.rotate by 1 at m=1271, mvec=(31, 41) (orders [30, 2], the last
+    dimension bad: two automorphisms blended with masks, and a carry)
+    through K3 and no other kernel, against the same chain with the plain
+    convolution and against the port on the host (keys and encryption are
+    host-seeded, so the same on both); the decrypt equals the PtxtBGV
+    oracle."""
+    def encrypted(ctx):
+        sk = _slot_keys(ctx)
+        ea = EncryptedArray(ctx)
+        rng = np.random.default_rng(9)
+        slots = [rng.integers(0, 2, ea.d) for _ in range(ea.nslots)]
+        return sk, ea, slots, ea.encrypt(slots, sk.pubkey, rng)
+
+    ctx = Context(**SLOTS)
+    sk, ea, slots, ct = encrypted(ctx)
+    assert (ctx.pal.orders, ctx.pal.native) == ([30, 2], [True, False])
+    minted = len(sk.matrices)
+    before = (conv_aux_cuda.launches, conv_cuda.launches)
+    got = ea.rotate(ct.copy(), 1, sk)
+    torch.cuda.synchronize()
+    assert conv_aux_cuda.launches > before[0]
+    assert conv_cuda.launches == before[1] and len(sk.matrices) == minted
+    want = PtxtBGV(ea, slots).rotate(1)
+    assert PtxtBGV.decode(ea, sk.decrypt_bgv(got)) == want
+
+    sk_cpu, ea_cpu, _, ct_cpu = encrypted(Context(**SLOTS, device="cpu"))
+    host = ea_cpu.rotate(ct_cpu, 1, sk_cpu)
+
+    monkeypatch.setattr(convmod, "conv_aux", convmod.conv_aux_plain)
+    launched = conv_aux_cuda.launches
+    plain = ea.rotate(ct.copy(), 1, sk)
+    assert conv_aux_cuda.launches == launched
+    for ref in (plain, host):
+        assert [(h, ref.k, ref.special) for h, _ in ref.parts] == [
+            (h, got.k, got.special) for h, _ in got.parts]
+        for (_, a), (_, b) in zip(got.parts, ref.parts):
+            assert torch.equal(a.cpu(), b.cpu())
