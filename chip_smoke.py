@@ -75,7 +75,24 @@ Phases, in order; any failure exits non-zero:
      held against the plain K3 and, with mul_by_constant, against the port
      on the host CPU; setup s, host encode/decode ms, cold and warm ms and
      K3 launches per op, the device masks cached, peak memory and K3's row
-     on the rotate's inputs.
+     on the rotate's inputs;
+ 13. BGV thin bootstrapping at m=31775 on phase 12's context, keys and
+     EncryptedArray (HElib's bgv_thinboot "small" size): RecryptData(hwt=64)
+     (e, ePrime, setup s split into the big-space EncryptedArray, the two
+     EvalMaps and ekey), slots from default_rng(143) brought to k=3, one cold
+     thin_recrypt with the SecKey (matrices minted, their bytes) and warm
+     ones with the PubKey alone (nothing minted); each decrypts to the input
+     slots, is correct, gains more than 30 bits of capacity and multiplies
+     correctly after; K3 alone launched, its count; a warm run bit-identical
+     to the plain-K3 chain (the cached diagonals rebuilt plain); host ms per
+     stage, a profile of a warm run, K3's row on a sample of the
+     bootstrap's inputs, peak memory;
+ 14. m=1271 (HElib's bgv_thinboot/bgv_fatboot "tiny" size), thin and fat
+     with SecKey(seed=131, hwt=64): cold and warm ms through K3 alone, each
+     decrypting exactly to its input; the warm thin bootstrap
+     bit-identical to the port on the host CPU at the full 600 bits (slot
+     tables shared, keys and recryption state carried by convert.py); K3's
+     row on the thin bootstrap's inputs.
 Each path, each op and the probe run is driven with the launch counts set to
 0 just before it and read just after.  The last three lines are the card's
 name and power limit as nvidia-smi prints them, the kernel table as JSON, and
@@ -85,6 +102,7 @@ name and power limit as nvidia-smi prints them, the kernel table as JSON, and
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import math
 import os
@@ -826,7 +844,7 @@ def perop_path(dev, card: str) -> dict:
 SLOTS = dict(m=31775, p=2, r=1, bits=600, c=3, mvec=(31, 25, 41))
 SLOTS_SEED, SLOTS_HWT, SLOTS_DATA_SEED = 141, 64, 143
 SLOTS_HYPERCUBE = ([30, 20, 2], [True, True, False])
-WARM_REPS = 3
+WARM_REPS = 1
 
 
 def timed(f, reps: int = 1):
@@ -1025,7 +1043,7 @@ def slot_path(dev, card: str) -> dict:
                       "fat_masks_count_bytes": masks,
                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
                       "conv_aux_row_rotate1": row, "card": card}))
-    return row
+    return row, (ctx, sk, pk, ea)
 
 
 def _plus(ct, c):
@@ -1061,6 +1079,368 @@ def same_parts(a, b, what: str):
 
 
 # ---------------------------------------------------------------------------
+# BGV bootstrapping at m=31775 and m=1271 (K3)
+# ---------------------------------------------------------------------------
+
+# HElib's bgv_thinboot / bgv_fatboot "tiny" size (benchmarks/thinboot_bench.py)
+BOOT_TINY = dict(m=1271, p=2, r=1, bits=600, c=3, mvec=(31, 41))
+BOOT_HWT, BOOT_TINY_SEED, BOOT_TINY_DATA_SEED = 64, 131, 133
+BOOT_WARM_REPS = 2
+# ms of the kernel row: at most this many of the path's K3 inputs are kept
+ROW_SAMPLES = 24
+# the thin bootstrap's stages, in the order thin_recrypt runs them
+BOOT_STAGES = ("slotToCoeff", "relinearize to the recryption key",
+               "raw mod switch and make-divisible", "re-encrypt",
+               "coeffToSlot and trace", "extract_digits_thin")
+
+
+class timers:
+    """Context manager wrapping module or class attributes so each call's
+    host time (ended by a synchronize) adds to `.s[name]`."""
+
+    def __init__(self, *targets):
+        self.targets, self.s, self.saved = targets, {}, []
+
+    def __enter__(self):
+        for obj, attr, name in self.targets:
+            orig = getattr(obj, attr)
+
+            def wrapped(*a, _orig=orig, _name=name, **kw):
+                t0 = time.time()
+                out = _orig(*a, **kw)
+                torch.cuda.synchronize()
+                self.s[_name] = self.s.get(_name, 0.0) + time.time() - t0
+                return out
+            self.saved.append((obj, attr, orig))
+            setattr(obj, attr, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, attr, orig in reversed(self.saved):
+            setattr(obj, attr, orig)
+
+
+class stage_marks:
+    """Host-clock marks at the start of each stage of thin_recrypt (a
+    synchronize first), from wrappers around the calls that begin them;
+    `.ms()` gives each stage's ms (the re-encrypt begins where the last
+    Phi_m projection ends)."""
+
+    def __init__(self, rec, rc):
+        from helib_tpu_torch.ctxt import Ctxt
+        self.t = {}
+
+        def mark(name):
+            torch.cuda.synchronize()
+            self.t[name] = time.time()
+
+        def at_start(fn, name, when=lambda *a, **kw: True):
+            def wrapped(*a, **kw):
+                if when(*a, **kw):
+                    mark(name)
+                return fn(*a, **kw)
+            return wrapped
+
+        def at_end(fn, name):
+            def wrapped(*a, **kw):
+                out = fn(*a, **kw)
+                mark(name)
+                return out
+            return wrapped
+        names = BOOT_STAGES
+        self.swaps = [
+            swap(rc.slot_to_coeff, "apply",
+                 at_start(rc.slot_to_coeff.apply, names[0])),
+            swap(Ctxt, "relinearize", at_start(
+                Ctxt.relinearize, names[1],
+                lambda self, key, to_key=0: to_key != 0)),
+            swap(rec, "raw_mod_switch", at_start(rec.raw_mod_switch,
+                                                 names[2])),
+            swap(rec, "_phim_project", at_end(rec._phim_project, names[3])),
+            swap(rc.coeff_to_slot, "apply",
+                 at_start(rc.coeff_to_slot.apply, names[4])),
+            swap(rec, "extract_digits_thin",
+                 at_start(rec.extract_digits_thin, names[5]))]
+        self.mark = mark
+
+    def __enter__(self):
+        for sw in self.swaps:
+            sw.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.mark("end")
+        for sw in reversed(self.swaps):
+            sw.__exit__(*exc)
+
+    def ms(self) -> dict:
+        order = list(BOOT_STAGES) + ["end"]
+        return {a: (self.t[b] - self.t[a]) * 1e3
+                for a, b in zip(order, order[1:])}
+
+
+def all_fats(*objs) -> list:
+    """Every FatEncodedPtxt held by the EncryptedArrays' mask caches and by
+    the maps' stage executors (their cached diagonals)."""
+    from helib_tpu_torch.encoded import FatEncodedPtxt
+    out, seen = [], set()
+
+    def add(v):
+        if isinstance(v, FatEncodedPtxt) and id(v) not in seen:
+            seen.add(id(v))
+            out.append(v)
+        elif isinstance(v, (list, tuple)):
+            for x in v:
+                add(x)
+        elif isinstance(v, dict):
+            for x in v.values():
+                add(x)
+    for o in objs:
+        if hasattr(o, "_mask_cache"):
+            add(o._mask_cache)
+        for ex in getattr(o, "_execs", []):
+            add(getattr(ex, "_fat_cache", ex))
+        add(getattr(o, "terms", []))
+    return out
+
+
+class plain_fats:
+    """The FatEncodedPtxts' device tensors dropped for the duration, so a
+    run rebuilds them (under the plain K3 when that is swapped in), then
+    restored."""
+
+    def __init__(self, fats):
+        self.fats = fats
+
+    def __enter__(self):
+        self.saved = [f._full for f in self.fats]
+        for f in self.fats:
+            f._full = None
+
+    def __exit__(self, *exc):
+        for f, full in zip(self.fats, self.saved):
+            f._full = full
+
+
+def sampled_kernel_row(fn, launches: int, name: str = "conv_aux") -> dict:
+    """kernel_row on a sample of at most ROW_SAMPLES of the inputs a run of
+    fn() gives the kernel (every launches // ROW_SAMPLES-th call; keeping
+    all of a bootstrap's inputs would hold gigabytes)."""
+    mod, attr = kernel_table()[name][:2]
+    orig, kept, count = getattr(mod, attr), [], [0]
+    step = max(1, launches // ROW_SAMPLES)
+
+    def rec(*args):
+        if count[0] % step == 0 and len(kept) < ROW_SAMPLES:
+            kept.append(args)
+        count[0] += 1
+        return orig(*args)
+    with swap(mod, attr, rec):
+        fn()
+    torch.cuda.synchronize()
+    if count[0] != launches:
+        raise AssertionError(f"sample run made {count[0]} {name}s, not "
+                             f"{launches}")
+    return {**row_on(kept, launches, name), "sampled_inputs": len(kept),
+            "shapes": sorted({str(tuple(a[0].shape)) for a in kept})}
+
+
+def boot_setup(ctx, sk, ea, fat: bool = False):
+    """RecryptData (or FatRecryptData) with its setup split by host timers
+    around the calls it makes: the big-space EncryptedArray, the maps and
+    ekey."""
+    from helib_tpu_torch import recryption as rec
+    cls = rec.FatRecryptData if fat else rec.RecryptData
+    with timers((rec, "EncryptedArray", "ea_big_s"),
+                (cls, "_build_maps", "maps_s"),
+                (rec, "_encrypt_with_space", "ekey_s")) as tm:
+        t0 = time.time()
+        rc = cls(ctx, sk, ea, hwt=BOOT_HWT)
+        torch.cuda.synchronize()
+    return rc, {"total_s": time.time() - t0, **tm.s}
+
+
+def boot_check(name, ea, sk, low, out, slots, key, fat: bool = False):
+    """The bootstrap's output: decrypts to the input slots (equal
+    coefficient vectors are equal slots), is correct, gained more than 30
+    bits of capacity, and a multiply after it decrypts to the slot-wise
+    product."""
+    want = ea.encode(slots)
+    if not np.array_equal(sk.decrypt_bgv(out), want):
+        raise AssertionError(f"boot {name}: decrypt != input slots")
+    if not out.is_correct() or out.capacity() <= low.capacity() + 30:
+        raise AssertionError(f"boot {name}: capacity {low.capacity():.1f} "
+                             f"-> {out.capacity():.1f}")
+    if fat:
+        return out.capacity()
+    sq = out.multiply(out, key)
+    prod = [int(a) * int(a) % ea.pr for a in slots]
+    if not np.array_equal(sk.decrypt_bgv(sq), ea.encode(prod)):
+        raise AssertionError(f"boot {name}: multiply after the bootstrap")
+    return out.capacity()
+
+
+def boot_path(ctx, sk, pk, ea, card: str) -> dict:
+    """Phase 13: the thin bootstrap at m=31775 on phase 12's context and
+    keys, through K3 alone."""
+    from helib_tpu_torch import recryption as rec
+    from helib_tpu_torch.ops import conv as convmod
+
+    torch.cuda.reset_peak_memory_stats()
+    rc, setup = boot_setup(ctx, sk, ea)
+    fft = ctx.m * (rc.big_space / 2.0) ** 2 < 2.0 ** 44
+    print(f"boot: {rc!r} at m={ctx.m}; big-space EA mod 2^"
+          f"{rc.ea_big.r}; the Phi_m projection takes the "
+          f"{'float64 FFT' if fft else 'exact int64'} branch; setup "
+          f"{json.dumps(setup)}")
+    rng = np.random.default_rng(SLOTS_DATA_SEED)
+    slots = [int(v) for v in rng.integers(0, ctx.ptxt_space, ea.nslots)]
+    low = ea.encrypt(slots, pk, rng)
+    low.bring_to_k(3)
+
+    def run(name, key, reps=1):
+        reset_launches()
+        out, h, e = timed(lambda: rec.thin_recrypt(low, rc, key), reps)
+        c = read_launches()
+        expect_only(c, "conv_aux", f"boot {name}")
+        cap = boot_check(name, ea, sk, low, out, slots, key)
+        return out, {"host_ms": h, "event_ms": e,
+                     "conv_aux": c["conv_aux"] // reps, "capacity": cap}
+
+    _, cold = run("cold", sk)
+    minted = len(sk.matrices)
+    # the device constants the bootstrap reads (with phase 12's masks)
+    fats = all_fats(ea, rc.ea_big, rc.slot_to_coeff, rc.coeff_to_slot)
+    info = {"capacity_in": low.capacity(), "matrices_minted": minted,
+            "matrix_bytes": sum(t.numel() * t.element_size()
+                                for W in sk.matrices.values()
+                                for t in W.b + W.a),
+            "device_constants_count_bytes": (
+                len(fats), sum(f._full.numel() * 4 for f in fats
+                               if f._full is not None))}
+    out_warm, warm = run("warm (PubKey)", pk, BOOT_WARM_REPS)
+    if len(sk.matrices) != minted:
+        raise AssertionError("boot: the PubKey runs minted a matrix")
+    print(f"boot: cold {json.dumps(cold)}; {minted} matrices minted "
+          f"({info['matrix_bytes'] / 2**20:.1f} MiB); warm, the mean of "
+          f"{BOOT_WARM_REPS} PubKey runs, {json.dumps(warm)}; decrypts, "
+          f"capacity and the multiply after it checked on both")
+
+    # one warm run both timed per stage and sampled for K3's row
+    marks = stage_marks(rec, rc)
+
+    def staged():
+        with marks:
+            rec.thin_recrypt(low, rc, pk)
+    row = sampled_kernel_row(staged, warm["conv_aux"])
+    stages = marks.ms()
+    print("boot: host ms per stage " + ", ".join(
+        f"{k} {v:.1f}" for k, v in stages.items()))
+
+    # one warm bootstrap with the plain K3, its diagonals rebuilt plain too
+    with swap(convmod, "conv_aux", convmod.conv_aux_plain), plain_fats(fats):
+        reset_launches()
+        ref = rec.thin_recrypt(low, rc, pk)
+        torch.cuda.synchronize()
+        if any(read_launches().values()):
+            raise AssertionError("reference run launched a kernel")
+    same_parts(out_warm, ref, "boot: kernel path != plain path")
+    print(f"boot: warm bootstrap bit-identical to the plain-K3 chain "
+          f"({len(fats)} device constants rebuilt plain)")
+
+    t0 = time.time()
+    profile(lambda: rec.thin_recrypt(low, rc, pk), (),
+            "bgv thin bootstrap m=31775, warm")
+    print(f"boot: the profile took {time.time() - t0:.1f} s")
+    print(json.dumps({"metric": "torch_cuda_bgv_thinboot_m31775_b600",
+                      "e": rc.e, "ePrime": rc.ePrime, "setup_s": setup,
+                      "cold": cold, "warm": warm, "stage_ms": stages,
+                      **info, "conv_aux_row": row,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+                      "card": card}))
+    return row
+
+
+def tiny_boot_path(dev, card: str) -> dict:
+    """Phase 14: thin and fat bootstraps at m=1271 through K3 alone; the
+    thin one held against the port on the host CPU at the full 600
+    bits."""
+    from helib_tpu_torch import convert, recryption as rec
+    from helib_tpu_torch.context import Context
+    from helib_tpu_torch.ea import EncryptedArray
+    from helib_tpu_torch.keys import SecKey, PubKey
+
+    res = {}
+
+    def drive(fat: bool):
+        """Setup, a cold run with the SecKey and a warm one with the PubKey,
+        each checked; returns what the thin checks below need."""
+        name = "fat" if fat else "thin"
+        t0 = time.time()
+        ctx = Context(**BOOT_TINY, scheme="bgv", device=dev)
+        sk = SecKey(ctx, seed=BOOT_TINY_SEED, hwt=BOOT_HWT)
+        pk, ea = PubKey(sk), EncryptedArray(ctx)
+        r = res[name] = {"context_keys_ea_s": time.time() - t0}
+        rc, r["setup_s"] = boot_setup(ctx, sk, ea, fat)
+        rng = np.random.default_rng(BOOT_TINY_DATA_SEED)
+        if fat:
+            slots = [rng.integers(0, ea.pr, ea.d) for _ in range(ea.nslots)]
+        else:
+            slots = [int(v) for v in rng.integers(0, ea.pr, ea.nslots)]
+        low = ea.encrypt(slots, pk, rng)
+        low.bring_to_k(3)
+        fn = rec.fat_recrypt if fat else rec.thin_recrypt
+        for which, key in (("cold", sk), ("warm", pk)):
+            n = len(sk.matrices)
+            reset_launches()
+            out, h, e = timed(lambda: fn(low, rc, key))
+            c = read_launches()
+            expect_only(c, "conv_aux", f"boot m=1271 {name} {which}")
+            if which == "warm" and len(sk.matrices) != n:
+                raise AssertionError("boot m=1271: the PubKey run minted")
+            cap = boot_check(f"m=1271 {name} {which}", ea, sk, low, out,
+                             slots, key, fat)
+            r[which] = {"host_ms": h, "event_ms": e,
+                        "conv_aux": c["conv_aux"], "capacity": cap}
+        r["matrices_minted"] = len(sk.matrices)
+        print(f"boot m=1271 {name}: {rc!r}; {json.dumps(r)}; decrypts "
+              f"exactly, capacity {low.capacity():.1f} -> "
+              f"{out.capacity():.1f}")
+        return rc, sk, ea, low, out
+
+    torch.cuda.reset_peak_memory_stats()
+    rc, sk, ea, low, out = drive(fat=False)
+    # the warm thin bootstrap on the host CPU: slot tables shared, keys and
+    # the recryption state carried over by convert.py
+    t0 = time.time()
+    ctx_cpu = Context(**BOOT_TINY, scheme="bgv", device="cpu")
+    sk_cpu = keys_on_host(ctx_cpu, sk)
+    rc_cpu = rec.RecryptData(ctx_cpu, sk_cpu, ea_on_host(ea, ctx_cpu),
+                             hwt=BOOT_HWT)
+    convert.load_recrypt_state(rc_cpu, sk_cpu, convert.recrypt_state(rc, sk))
+    low_cpu = convert.ctxt_from_arrays(ctx_cpu, sk_cpu.pubkey,
+                                       **convert.ctxt_arrays(low))
+    t1 = time.time()
+    host = rec.thin_recrypt(low_cpu, rc_cpu, sk_cpu.pubkey)
+    same_parts(out, host, "boot m=1271 thin: GPU != CPU port")
+    print(f"boot m=1271 thin: warm bootstrap bit-identical to the port on "
+          f"the host CPU at bits={BOOT_TINY['bits']} (setup {t1 - t0:.1f} s, "
+          f"bootstrap {time.time() - t1:.1f} s on {torch.get_num_threads()} "
+          f"threads)")
+    row = sampled_kernel_row(lambda: rec.thin_recrypt(low, rc, sk.pubkey),
+                             res["thin"]["warm"]["conv_aux"])
+    del rc, sk, ea, low, out, rc_cpu, sk_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    drive(fat=True)
+    print(json.dumps({"metric": "torch_cuda_bgv_boot_m1271_b600", **res,
+                      "conv_aux_row_thin": row,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+                      "card": card}))
+    return row
+
+
+# ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
 
@@ -1092,21 +1472,26 @@ def timing(fn, args, iters: int = 10) -> dict:
 
 
 def profile(fn, args, label: str, top: int = 10):
-    """Device time of one call by kernel name (torch.profiler), and the
-    call's wall time: the share of the call the device is busy."""
+    """Device time of one call by kernel name (torch.profiler, the card's
+    activity alone), and the call's wall time: the share of the call the
+    device is busy.  The raw kernel events are summed here: key_averages()
+    takes minutes over a bootstrap's ~4e5 launches."""
     from torch.profiler import profile as prof, ProfilerActivity
     fn(*args)
     torch.cuda.synchronize()
-    with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+    with prof(activities=[ProfilerActivity.CUDA]) as p:
         t0 = time.time()
         fn(*args)
         torch.cuda.synchronize()
         wall = time.time() - t0
     cuda = torch.autograd.DeviceType.CUDA
-    rows = [(e.key, e.count, e.self_device_time_total / 1e3)
-            for e in p.key_averages()
-            if e.device_type == cuda and e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[2])
+    by_name: dict = {}
+    for e in p.profiler.kineto_results.events():
+        if e.device_type() == cuda and e.duration_ns() > 0:
+            count, ns = by_name.get(e.name(), (0, 0))
+            by_name[e.name()] = (count + 1, ns + e.duration_ns())
+    rows = sorted(((k, c, ns / 1e6) for k, (c, ns) in by_name.items()),
+                  key=lambda r: -r[2])
     busy = sum(r[2] for r in rows)
     print(f"profile ({label}): one call {wall * 1e3:.3f} ms wall, device "
           f"busy {busy:.3f} ms ({100 * busy / (wall * 1e3):.1f} %), "
@@ -1154,15 +1539,23 @@ def kernel_row(fn, args, launches: dict, name: str) -> dict:
     """Times one kernel on the inputs its path gave it: the kernel, its
     plain version and the bound, averaged over the path's launches.  Each
     of those launches is also held to the plain version bit for bit."""
-    mod, attr, src, replaces, kernel, plain, bound = kernel_table()[name]
+    mod, attr = kernel_table()[name][:2]
     with capture(mod, attr) as cap:
         fn(*args)
     torch.cuda.synchronize()
     if len(cap.calls) != launches[name]:
         raise AssertionError(f"capture run made another number of {name}s")
+    return row_on(cap.calls, launches[name], name)
+
+
+def row_on(calls, launches: int, name: str) -> dict:
+    """The kernel's row on the given inputs: ms, plain ms and bound averaged
+    over them, each held to the plain version bit for bit; `launches` is
+    the count the path made."""
+    _, _, src, replaces, kernel, plain, bound = kernel_table()[name]
     ms = plain_ms = bb = bo = 0.0
     err = 0
-    for a in cap.calls:
+    for a in calls:
         ms += event_ms(lambda: kernel(*a))
         plain_ms += event_ms(lambda: plain(*a), reps=3)
         got, ref = kernel(*a), plain(*a)
@@ -1173,9 +1566,9 @@ def kernel_row(fn, args, launches: dict, name: str) -> dict:
                                  f"input {tuple(a[0].shape)}")
         b, o = bound(*a)
         bb, bo = bb + b, bo + o
-    n = len(cap.calls)
+    n = len(calls)
     return {"name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": launches,
             "max_abs_err": err, "ms": ms / n, "plain_ms": plain_ms / n,
             "bound_ms": max(bb, bo) / n,
             "bound_by": "bytes" if bb >= bo else "operations",
@@ -1612,7 +2005,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels["p1"], kernels["p2"] = probe_path(dev, card)
     torch.cuda.empty_cache()
-    slot_path(dev, card)
+    _, held = slot_path(dev, card)
+    t0 = time.time()
+    boot_path(*held, card)
+    print(f"chip_smoke: phase 13 took {time.time() - t0:.1f} s")
+    del held
+    gc.collect()         # the stage wrappers leave reference cycles
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    tiny_boot_path(dev, card)
+    print(f"chip_smoke: phase 14 took {time.time() - t0:.1f} s")
     print(f"chip_smoke: {time.time() - start:.1f} s of command time after "
           f"start-up")
     print(card)

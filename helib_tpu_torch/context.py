@@ -81,6 +81,9 @@ class Context:
     digits: list = field(init=False)         # list of (start, end) over ctxt primes
     ntt_fwd: object = field(init=False)
     ntt_inv: object = field(init=False)
+    # the recryption plaintext space p^(e-e'+r) once RecryptData is built:
+    # every key-switching matrix minted after that carries it
+    boot_ptxt_space: int = field(default=0, init=False)
 
     def __post_init__(self):
         if self.scheme not in ("bgv", "ckks"):

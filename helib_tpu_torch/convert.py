@@ -129,3 +129,40 @@ def ctxt_arrays(ct) -> dict:
             "intFactor": ct.intFactor,
             "ratFactor": Fraction(getattr(ct, "ratFactor", 1)),
             "ptxtMag": getattr(ct, "ptxtMag", 1.0)}
+
+
+def recrypt_state(rc, sk) -> dict:
+    """The key state of a RecryptData-like object (either package's) and
+    its SecKey as plain values and numpy arrays: e, ePrime, the big
+    plaintext space, the recryption key's index, every secret (the
+    recryption key's coefficients among them), ekey and the key-switching
+    matrices, which RecryptData mints at the big space."""
+    return {"e": rc.e, "ePrime": rc.ePrime, "big_space": rc.big_space,
+            "recrypt_key": rc.recrypt_key,
+            "skeys": [{"coeffs": np.asarray(s["coeffs"], dtype=np.int64),
+                       "bound": float(s["bound"]), "full": _host(s["full"])}
+                      for s in sk.skeys],
+            "ekey": ctxt_arrays(rc.ekey),
+            "matrices": {key: ksmatrix_arrays(W)
+                         for key, W in sk.matrices.items()}}
+
+
+def load_recrypt_state(rc, sk: SecKey, state: dict):
+    """Puts a carried key state (`recrypt_state`) into this package's
+    RecryptData `rc` and its SecKey: the secrets, the matrices (in place,
+    so the PubKey that shares them sees them) and ekey.  The maps are
+    deterministic in the slot tables, so `rc` keeps its own."""
+    ctx = rc.ctx
+    if (rc.e, rc.ePrime, rc.big_space) != (state["e"], state["ePrime"],
+                                           state["big_space"]):
+        raise InvalidArgument("carried recryption parameters differ")
+    ctx.boot_ptxt_space = rc.big_space
+    sk.skeys = [{"coeffs": np.asarray(s["coeffs"], dtype=np.int64),
+                 "bound": float(s["bound"]),
+                 "full": to_device(s["full"], ctx.device)}
+                for s in state["skeys"]]
+    sk.matrices.clear()
+    sk.matrices.update({key: ksmatrix_from_arrays(ctx, **W)
+                        for key, W in state["matrices"].items()})
+    rc.recrypt_key = int(state["recrypt_key"])
+    rc.ekey = ctxt_from_arrays(ctx, sk.pubkey, **state["ekey"])

@@ -6,7 +6,8 @@ Parts are [..., P, N] tensors, so one Ctxt can carry a batch of ciphertexts
 in its leading dims.  `copy()` shares the part tensors, so every op builds
 new tensors and none writes into a part in place.  Constants come as host
 coefficient vectors, EncodedPtxt or device-resident FatEncodedPtxt
-(encoded.py).  The bootstrapping helpers come with a later slice.
+(encoded.py).  The bootstrapping helpers (trace_map, divide_by_p,
+mult_by_p, extract_bits, reduce_ptxt_space) are here too.
 """
 
 from __future__ import annotations
@@ -23,9 +24,9 @@ from .dcrt import (rt_add, rt_neg, rt_mul, rt_mul_scalar, rt_automorph,
                    rt_scale_down, rt_add_special_and_scale,
                    rt_break_into_digits, small_coeffs_to_rt)
 from .keys import SKHandle, PubKey, KSMatrix, balanced_int, get_ks_matrix
-from .ops.modops import mul_mod, add_mod
+from .ops.modops import mul_mod, add_mod, mul_mod_shoup, shoup, to_device
 from .nt.numbth import inv_mod
-from .exceptions import LogicError, OutOfRangeError
+from .exceptions import InvalidArgument, LogicError, OutOfRangeError
 
 SAFETY_BITS = 1.0   # reference `safety` margin (log 2) in interval selection
 
@@ -495,6 +496,99 @@ class Ctxt:
     def conjugate(self, key):
         """CKKS complex conjugation: X -> X^(m-1)."""
         return self.smart_automorph(self.ctx.m - 1, key)
+
+    # ------------------------------------------------- bootstrapping helpers
+    def trace_map(self, key):
+        """Trace over the slot extension, sum_{i<d} sigma_{p^i}: leaves a
+        constant in every slot (HElib's traceMap, used by ThinEvalMap's
+        apply, EvalMap.cpp:658).  For d > 3 the d-1 Frobenius maps share
+        one key-switch digit decomposition (algos/hoisting.py): one
+        decomposition and d-1 MAC sets instead of d-1 relinearizations."""
+        d = self.ctx.pal.d
+        p, m = self.ctx.p, self.ctx.m
+        if d > 3:
+            from .algos.hoisting import AutomorphPrecon
+            precon = AutomorphPrecon(self, key)
+            acc = None
+            for i in range(1, d):
+                t = precon.automorph(pow(p, i, m))
+                acc = t if acc is None else acc.add(t)
+            acc = acc.add(precon.base)
+        else:
+            acc = self
+            frob = self
+            for _ in range(1, d):
+                frob = frob.copy().frobenius(1, key)
+                acc = acc.copy().add(frob)
+        if acc is not self:
+            self.parts = acc.parts
+            self.k, self.special = acc.k, acc.special
+            self.noise = acc.noise
+            self.ptxt_space = acc.ptxt_space
+            self.intFactor = acc.intFactor
+        return self
+
+    def divide_by_p(self):
+        """Divide the plaintext by p (it must be divisible); plaintext space
+        p^r -> p^(r-1) (HElib's Ctxt::divideByP, Ctxt.h:1212)."""
+        ctx = self.ctx
+        p = ctx.p
+        if self.ptxt_space % p or self.ptxt_space <= p:
+            raise InvalidArgument(
+                f"divide_by_p: plaintext space {self.ptxt_space} not a "
+                f"proper multiple of p={p}")
+
+        def build():
+            qs = ctx.primes_of(self.k, self.special).astype(np.uint64)
+            inv = np.array([pow(p, -1, int(q)) for q in qs],
+                           dtype=np.uint32)[:, None]
+            return (to_device(inv, ctx.device),
+                    to_device(shoup(inv, qs[:, None]), ctx.device))
+        inv, ish = ctx.cached(("inv_p", self.k, self.special), build)
+        q, _ = ctx.dev_q(self.k, self.special)
+        self.parts = [(h, mul_mod_shoup(d, inv, ish, q))
+                      for h, d in self.parts]
+        self.ptxt_space //= p
+        self.noise -= math.log2(p)
+        self.intFactor %= self.ptxt_space
+
+    def mult_by_p(self, count: int = 1):
+        """Multiply the plaintext by p^count (HElib's multByP)."""
+        p = self.ctx.p ** count
+        self.parts = [(h, rt_mul_scalar(self.ctx, d, p, self.k, self.special))
+                      for h, d in self.parts]
+        self.ptxt_space *= p
+        self.noise += math.log2(p)
+
+    def extract_bits(self, key, n_bits: int = 0) -> list:
+        """Ciphertexts of the base-p digits (bits for p = 2) of the slot
+        values (HElib's Ctxt::extractBits, Ctxt.h:1225, an alias of
+        extractDigits).  At odd composite m (prime powers p'^k included,
+        whose cofactor (X^m-1)/Phi_m has degree > 1) the input is first
+        multiplied by the Phi_m idempotent (nt.numbth.phim_idempotent), so
+        the ladder's divide_by_p is exact in the mod-(X^m - 1)
+        representation; at prime m the one junk component (the value at
+        X = 1) follows the same digit arithmetic, and power-of-2 m has
+        none."""
+        from .algos.extract import extract_digits
+        from .nt.numbth import is_prime, phim_idempotent
+        src = self
+        if not self.ctx.pal.pow2 and not is_prime(self.ctx.m):
+            src = self.copy()
+            src.mul_constant_poly(phim_idempotent(self.ctx.m,
+                                                  self.ptxt_space))
+        return extract_digits(src, key, n_bits if n_bits > 0 else None)
+
+    def reduce_ptxt_space(self, new_space: int):
+        """Reduce the plaintext space to gcd(space, new_space) (HElib's
+        reducePtxtSpace)."""
+        g = math.gcd(self.ptxt_space, new_space)
+        if g <= 1:
+            raise InvalidArgument(f"reduce_ptxt_space: gcd({self.ptxt_space}"
+                                  f", {new_space}) is trivial")
+        self.ptxt_space = g
+        self.intFactor %= g
+        return self
 
 
 def _align_ckks_factors(a: Ctxt, b: Ctxt):

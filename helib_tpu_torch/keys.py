@@ -162,7 +162,10 @@ class SecKey:
         if key in self.matrices:
             return self.matrices[key]
         ctx = self.ctx
-        p = 1 if ctx.scheme == "ckks" else (ptxt_space or ctx.ptxt_space)
+        # a bootstrappable context mints every matrix at the recryption
+        # plaintext space (HElib's GenKeySWmatrix, keys.cpp:1212-1222)
+        p = 1 if ctx.scheme == "ckks" else (
+            ptxt_space or ctx.boot_ptxt_space or ctx.ptxt_space)
         # fromKey = s_{keyID}^powS(X^powX) on all rows
         fk = self.key_full(from_handle.keyID)
         if from_handle.powX != 1:

@@ -233,3 +233,45 @@ def crt_combine(residues: list[int], moduli: list[int]) -> int:
         qi = q // mi
         x += r * qi * inv_mod(qi % mi, mi)
     return x % q
+
+
+def mobius(n: int) -> int:
+    """Moebius mu(n)."""
+    fac = factorize(n)
+    if any(e > 1 for _, e in fac):
+        return 0
+    return -1 if len(fac) % 2 else 1
+
+
+def phim_idempotent(m: int, modulus: int):
+    """The CRT idempotent of the Phi_m component of Z_modulus[X]/(X^m - 1):
+    Pi with Pi = 1 (mod Phi_m), Pi = 0 (mod (X^m-1)/Phi_m).
+
+    Closed form via Ramanujan sums: Pi = (1/m) sum_k c_m(k) X^k with
+    c_m(k) = mu(m/gcd(k,m)) * phi(m)/phi(m/gcd(k,m)); requires
+    gcd(m, modulus) = 1.
+
+    Ring elements are represented mod X^m - 1 (ops/ntt.py), so an element
+    whose slots are divisible by p need not have a p-divisible
+    representative: the cofactor ("junk") components are unconstrained.
+    Multiplying a plaintext by Pi zeroes them, zero stays zero under +, *,
+    automorphisms and mod switching, and Ctxt.divide_by_p becomes exact in
+    the full representation -- the invariant the digit-extraction ladders
+    rely on (HElib works mod Phi_m directly, CModulus.h:89)."""
+    import numpy as np
+    minv = inv_mod(m % modulus, modulus)
+    phim = phi_n(m)
+    # c_m depends only on g = gcd(k, m): precompute per divisor
+    vals = {}
+    for g in sorted(set(math.gcd(k, m) for k in
+                        ([0] + [d for d in range(1, m + 1) if m % d == 0]))):
+        d = m // g
+        vals[g] = mobius(d) * (phim // phi_n(d))
+    ks = np.arange(m, dtype=np.int64)
+    gs = np.gcd(ks, m)
+    c = np.zeros(m, dtype=np.int64)
+    for g, v in vals.items():
+        c[gs == g] = v
+    out = (c % modulus) * minv % modulus
+    half = modulus // 2
+    return np.where(out > half, out - modulus, out)

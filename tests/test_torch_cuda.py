@@ -1,7 +1,7 @@
 """The port's CUDA kernels (K1 conv, K2 ntt, K3 conv_aux, K4 ntt2, K5
 conv2, the probes P1 and P2) and its BGV and CKKS paths (CKKS at m=1024
-and m=131072) and the BGV slot layer at m=1271 on the card, against the
-plain torch versions and the port on the CPU.
+and m=131072), the BGV slot layer and the thin bootstrap at m=1271 on the
+card, against the plain torch versions and the port on the CPU.
 
 Every test needs an NVIDIA GPU and skips without one.  The file imports no
 JAX, so it also runs where only PyTorch is installed (the conftest, which
@@ -390,6 +390,49 @@ def test_slot_rotate_m1271_through_k3_equals_plain_and_cpu(gpu,
     monkeypatch.setattr(convmod, "conv_aux", convmod.conv_aux_plain)
     launched = conv_aux_cuda.launches
     plain = ea.rotate(ct.copy(), 1, sk)
+    assert conv_aux_cuda.launches == launched
+    for ref in (plain, host):
+        assert [(h, ref.k, ref.special) for h, _ in ref.parts] == [
+            (h, got.k, got.special) for h, _ in got.parts]
+        for (_, a), (_, b) in zip(got.parts, ref.parts):
+            assert torch.equal(a.cpu(), b.cpu())
+
+
+BOOT = dict(m=1271, p=2, r=1, bits=600, c=3, mvec=(31, 41))
+
+
+def test_thin_recrypt_m1271_through_k3_equals_plain_and_cpu(gpu,
+                                                            monkeypatch):
+    """thin_recrypt at m=1271, mvec=(31, 41) (the factor-tree maps, B =
+    4096) through K3 and no other kernel, bit-identical to the same
+    bootstrap with the plain convolution (its constants built plain too)
+    and to the port on the host CPU (keys, the recryption key, ekey and the
+    encryption are host-seeded, so the same on all three); it decrypts to
+    its input slots."""
+    from helib_tpu_torch.recryption import RecryptData, thin_recrypt
+
+    def boot(ctx):
+        sk = SecKey(ctx, seed=131, hwt=64)
+        PubKey(sk)
+        ea = EncryptedArray(ctx)
+        rc = RecryptData(ctx, sk, ea, hwt=64)
+        rng = np.random.default_rng(133)
+        slots = [int(v) for v in rng.integers(0, 2, ea.nslots)]
+        low = ea.encrypt(slots, sk.pubkey, rng)
+        low.bring_to_k(3)
+        return thin_recrypt(low, rc, sk), sk, ea, slots, low
+
+    before = (conv_aux_cuda.launches, conv_cuda.launches)
+    got, sk, ea, slots, low = boot(Context(**BOOT))
+    torch.cuda.synchronize()
+    assert conv_aux_cuda.launches > before[0]
+    assert conv_cuda.launches == before[1]
+    assert np.array_equal(sk.decrypt_bgv(got), ea.encode(slots))
+    assert got.is_correct() and got.capacity() > low.capacity() + 30
+    host = boot(Context(**BOOT, device="cpu"))[0]
+    monkeypatch.setattr(convmod, "conv_aux", convmod.conv_aux_plain)
+    launched = conv_aux_cuda.launches
+    plain = boot(Context(**BOOT))[0]
     assert conv_aux_cuda.launches == launched
     for ref in (plain, host):
         assert [(h, ref.k, ref.special) for h, _ in ref.parts] == [
