@@ -57,8 +57,9 @@ Phases, in order; any failure exits non-zero:
      ciphertext I/O round trip -- through K3 (and no other kernel), each
      with a decrypt oracle; the rotate held against the same op with the
      plain K3 and, at m=32003 with 1500 bits, against the port on the host
-     CPU; ms per op, setup time, peak memory, a profile of one mult+relin,
-     K3's row and the clusters the card holds at once;
+     CPU (in a second process, checked after phase 12's setup); ms per op,
+     setup time, peak memory, a profile of one mult+relin, K3's row and the
+     clusters the card holds at once;
  11. the cost probes at the TPU probes' shapes: P1's seven variants on 160
      rows of 16384 words, 50 chained applications, and P2's three phases on
      160 rows of n = 16384, 100 chained, each held to its plain version bit
@@ -73,26 +74,56 @@ Phases, in order; any failure exits non-zero:
      dimension, total_sums and replicate, each through K3 and no other
      kernel and decrypted exactly to the PtxtBGV oracle; the rotate by 1
      held against the plain K3 and, with mul_by_constant, against the port
-     on the host CPU; setup s, host encode/decode ms, cold and warm ms and
+     on the host CPU (in a second process, checked after phase 13's cold
+     run); setup s, host encode/decode ms, cold and warm ms and
      K3 launches per op, the device masks cached, peak memory and K3's row
      on the rotate's inputs;
  13. BGV thin bootstrapping at m=31775 on phase 12's context, keys and
      EncryptedArray (HElib's bgv_thinboot "small" size): RecryptData(hwt=64)
      (e, ePrime, setup s split into the big-space EncryptedArray, the two
      EvalMaps and ekey), slots from default_rng(143) brought to k=3, one cold
-     thin_recrypt with the SecKey (matrices minted, their bytes) and warm
-     ones with the PubKey alone (nothing minted); each decrypts to the input
-     slots, is correct, gains more than 30 bits of capacity and multiplies
-     correctly after; K3 alone launched, its count; a warm run bit-identical
-     to the plain-K3 chain (the cached diagonals rebuilt plain); host ms per
-     stage, a profile of a warm run, K3's row on a sample of the
-     bootstrap's inputs, peak memory;
+     thin_recrypt with the SecKey (matrices minted, their bytes) and a warm
+     one with the PubKey alone (nothing minted; its host and event ms, host
+     ms per stage and K3's row on a sample of its inputs); each decrypts to
+     the input slots, is correct, gains more than 30 bits of capacity and
+     multiplies correctly after; K3 alone launched, its count; a second
+     warm run under the profiler (busy share), equal to the first; the
+     warm run bit-identical to the plain-K3 chain (the cached diagonals
+     rebuilt plain, each plain convolution one replay of a CUDA graph of
+     its kernels); peak memory;
  14. m=1271 (HElib's bgv_thinboot/bgv_fatboot "tiny" size), thin and fat
-     with SecKey(seed=131, hwt=64): cold and warm ms through K3 alone, each
-     decrypting exactly to its input; the warm thin bootstrap
-     bit-identical to the port on the host CPU at the full 600 bits (slot
-     tables shared, keys and recryption state carried by convert.py); K3's
-     row on the thin bootstrap's inputs.
+     with SecKey(seed=131, hwt=64): ms of a cold run with the SecKey and a
+     warm one with the PubKey (nothing minted) through K3 alone, each
+     decrypting exactly to its input; the warm thin bootstrap bit-identical
+     to the port on the host CPU at the full 600 bits (in a second process
+     while the fat one runs; keys and recryption state carried by
+     convert.py, slot tables rebuilt); K3's row on the thin warm run's
+     inputs;
+ 15. HElib's circuit library at the BGV_binary_arithmetic size m=4095, p=2,
+     bits=500, c=2, mvec=(7, 5, 9, 13) (144 slots of GF(2^12), hypercube
+     [6, 4, 6], B = 8192) with SecKey(seed=151), data from
+     default_rng(153), and the relinearization, Frobenius and permutation
+     network matrices (add_matrices_4_network) minted first: the 8-bit
+     add, the 4-bit multiply, the 8-bit compare, add_many of four 4-bit
+     numbers, a table lookup on a 4-bit index, three database queries
+     (an AND, an OR with a NOT, an OR of an AND), the optimized
+     permutation network of a default_rng(1) permutation at depth bound 5
+     (21 rotations, 13 matrices), unpack of full slots into 12 ciphertexts
+     and repack, and a random MatMul1D on dimension 0 -- each through K3
+     alone with the PubKey, decrypted exactly to numpy in all 144 slots;
+     the permutation held against the plain K3 and the 8-bit add against
+     the port on the host CPU; ms cold and warm, K3 launches and capacity
+     left per op, the busy share of a profiled 8-bit add, K3's row on a
+     sample of the warm ops' inputs, peak memory;
+ 16. MatMulCKKS at HElib's ckks_basic size m=16384 (N = 8192, 4096 slots),
+     bits=360, c=3, r=30, with SecKey(seed=161), a dense M and z uniform in
+     [-1, 1] from default_rng(163) and the 126 BSGS rotation matrices
+     minted first: one apply with BSGS (g = 64) through K2 alone, within
+     4 x error_bound() of M @ z (and within 1e-2 without the decrypt's
+     mitigation noise) and bit-identical to the same apply with
+     the plain K2 (each plain transform one replay of a CUDA graph of its
+     kernels, the diagonals replayed); ms split into host diagonal
+     extraction, encodes and the rest, K2's row at n = 8192, peak memory.
 Each path, each op and the probe run is driven with the launch counts set to
 0 just before it and read just after.  The last three lines are the card's
 name and power limit as nvidia-smi prints them, the kernel table as JSON, and
@@ -101,7 +132,7 @@ name and power limit as nvidia-smi prints them, the kernel table as JSON, and
 
 from __future__ import annotations
 
-import copy
+import contextlib
 import gc
 import json
 import math
@@ -638,56 +669,131 @@ def host_ms(fn, reps: int) -> float:
     return (time.time() - t0) / reps * 1e3
 
 
-def keys_on_host(ctx_cpu, sk):
-    """The card's secret key, its matrices and its public key carried over
-    to a host-CPU context by convert.py."""
+def keys_arrays(sk) -> dict:
+    """The card's secret key, its matrices and its public key as numpy
+    arrays and plain values (convert.py's)."""
     from helib_tpu_torch import convert
     from helib_tpu_torch.ops.modops import to_host
 
     pk = sk.pubkey
-    sk_cpu = convert.seckey_from_arrays(
-        ctx_cpu, [{"coeffs": s["coeffs"], "bound": s["bound"],
-                   "full": to_host(s["full"])} for s in sk.skeys],
-        {key: convert.ksmatrix_arrays(W) for key, W in sk.matrices.items()})
+    return {"skeys": [{"coeffs": s["coeffs"], "bound": s["bound"],
+                       "full": to_host(s["full"])} for s in sk.skeys],
+            "matrices": {key: convert.ksmatrix_arrays(W)
+                         for key, W in sk.matrices.items()},
+            "enc_key": [((h.powS, h.powX, h.keyID), to_host(d))
+                        for h, d in pk.enc_key],
+            "enc_noise": pk.enc_noise, "sk_bound": pk.sk_bound}
+
+
+def keys_from_arrays(ctx_cpu, keys: dict):
+    """The SecKey (its PubKey attached) of `keys_arrays` on a host-CPU
+    context."""
+    from helib_tpu_torch import convert
+
+    sk_cpu = convert.seckey_from_arrays(ctx_cpu, keys["skeys"],
+                                        keys["matrices"])
     sk_cpu.pubkey = convert.pubkey_from_arrays(
-        ctx_cpu, [((h.powS, h.powX, h.keyID), to_host(d))
-                  for h, d in pk.enc_key], pk.enc_noise, pk.sk_bound,
+        ctx_cpu, keys["enc_key"], keys["enc_noise"], keys["sk_bound"],
         sk_cpu.matrices)
     return sk_cpu
 
 
+def keys_on_host(ctx_cpu, sk):
+    """The card's secret key, its matrices and its public key carried over
+    to a host-CPU context by convert.py."""
+    return keys_from_arrays(ctx_cpu, keys_arrays(sk))
+
+
+def _host_threads(n: int):
+    torch.set_num_threads(n)
+
+
+class on_host:
+    """fn(*args) run through the port on the host CPU in a new Python
+    process while the card's work goes on.  The host's threads are split
+    in halves between that process and this one until `.result()`: more
+    threads than cores in all slows both many times over.  The process is
+    spawned, so it holds no CUDA state; the arguments and the result travel
+    pickled, so they are numpy arrays and plain values.  `.result()` waits
+    for it, re-raises its error, ends the process and gives the threads
+    back."""
+
+    def __init__(self, fn, *args):
+        import concurrent.futures as cf
+        import multiprocessing as mp
+        self.saved = torch.get_num_threads()
+        self.threads = max(1, self.saved // 2)
+        self.pool = cf.ProcessPoolExecutor(
+            1, mp_context=mp.get_context("spawn"), initializer=_host_threads,
+            initargs=(self.threads,))
+        self.future = self.pool.submit(fn, *args)
+        torch.set_num_threads(max(1, self.saved - self.threads))
+
+    def result(self):
+        try:
+            return self.future.result()
+        finally:
+            self.pool.shutdown()
+            torch.set_num_threads(self.saved)
+
+
+def same_arrays(a: dict, b: dict, what: str):
+    """Two ciphertexts' convert.ctxt_arrays equal: prime sets and residues,
+    part by part."""
+    if (a["k"], a["special"], [h for h, _ in a["parts"]]) != (
+            b["k"], b["special"], [h for h, _ in b["parts"]]) or not all(
+            np.array_equal(x, y) for (_, x), (_, y) in
+            zip(a["parts"], b["parts"])):
+        raise AssertionError(what)
+
+
+def _rotate_host(keys: dict, args: list) -> tuple:
+    """The rotate of `rotate_on_host` through the port on the host CPU (in
+    an `on_host` process): (its outputs, setup s, rotate s)."""
+    from helib_tpu_torch.context import Context
+    from helib_tpu_torch.pipeline import make_automorph_relin
+
+    t0 = time.time()
+    ctx = Context(**{**BIG, "bits": HOST_BITS}, device="cpu")
+    fn, _ = make_automorph_relin(ctx, keys_from_arrays(ctx, keys))
+    t1 = time.time()
+    out = fn(*[torch.from_numpy(a) for a in args])
+    return [t.numpy() for t in out], t1 - t0, time.time() - t1
+
+
 def rotate_on_host(dev):
-    """The rotate at m=32003 and HOST_BITS on the card and through the port
-    on the host CPU, with the card's keys carried over by convert.py (the
-    matrix of X -> X^3 included): bit-identical."""
+    """The rotate at m=32003 and HOST_BITS on the card, and started through
+    the port on the host CPU in a second process, with the card's keys
+    carried over by convert.py (the matrix of X -> X^3 included); the
+    function returned waits for it and checks the two bit-identical."""
     from helib_tpu_torch.context import Context
     from helib_tpu_torch.keys import SecKey, PubKey
     from helib_tpu_torch.pipeline import make_automorph_relin
 
-    params = {**BIG, "bits": HOST_BITS}
-    ctx = Context(**params, device=dev)
+    ctx = Context(**{**BIG, "bits": HOST_BITS}, device=dev)
     sk = SecKey(ctx, seed=BIG_SEED)
     PubKey(sk)
     fn, args = make_automorph_relin(ctx, sk)
-    out = fn(*args)
-    t0 = time.time()
-    ctx_cpu = Context(**params, device="cpu")
-    sk_cpu = keys_on_host(ctx_cpu, sk)
-    fn_cpu, _ = make_automorph_relin(ctx_cpu, sk_cpu)
-    t1 = time.time()
-    host = fn_cpu(*[a.cpu() for a in args])
-    if not all(torch.equal(a.cpu(), b) for a, b in zip(out, host)):
-        raise AssertionError("perop rotate: GPU != CPU port")
-    print(f"perop: rotate bit-identical to the port on the host CPU at "
-          f"m={ctx.m}, bits={ctx.bits}, L={ctx.L}, S={ctx.S} (setup "
-          f"{t1 - t0:.1f} s, rotate {time.time() - t1:.1f} s on "
-          f"{torch.get_num_threads()} threads)")
+    out = [a.cpu().numpy() for a in fn(*args)]
+    job = on_host(_rotate_host, keys_arrays(sk),
+                  [a.cpu().numpy() for a in args])
+    what = f"m={ctx.m}, bits={ctx.bits}, L={ctx.L}, S={ctx.S}"
+
+    def host_check():
+        host, setup_s, run_s = job.result()
+        if not all(np.array_equal(a, b) for a, b in zip(out, host)):
+            raise AssertionError("perop rotate: GPU != CPU port")
+        print(f"perop: rotate bit-identical to the port on the host CPU at "
+              f"{what} (setup {setup_s:.1f} s, rotate {run_s:.1f} s on "
+              f"{job.threads} threads, in a second process)")
+    return host_check
 
 
 def perop_path(dev, card: str) -> dict:
     """Drives each op once with the counts reset before it and read after,
-    checks it by decryption, holds the rotate against the plain K3 and the
-    host CPU, then times every op and K3."""
+    checks it by decryption, holds the rotate against the plain K3 and
+    starts it on the host CPU (the function returned last waits for that
+    and checks), then times every op and K3."""
     from helib_tpu_torch import io as tio
     from helib_tpu_torch.context import Context
     from helib_tpu_torch.ctxt import Ctxt
@@ -787,7 +893,7 @@ def perop_path(dev, card: str) -> dict:
     if not all(torch.equal(a, b) for a, b in zip(rot, ref)):
         raise AssertionError("perop rotate: kernel path != plain path")
     print("perop: rotate bit-identical to the plain-K3 chain")
-    rotate_on_host(dev)
+    host_check = rotate_on_host(dev)
 
     # timings: chained on the device, host clock, ended by a synchronize
     def chained(f, n):
@@ -831,7 +937,7 @@ def perop_path(dev, card: str) -> dict:
         "conv_aux_clusters_resident": conv_aux_max_clusters(dev),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
         "card": card}))
-    return row
+    return row, host_check
 
 
 # ---------------------------------------------------------------------------
@@ -862,18 +968,6 @@ def timed(f, reps: int = 1):
     return out, (time.time() - t0) * 1e3 / reps, a.elapsed_time(b) / reps
 
 
-def ea_on_host(ea, ctx_cpu):
-    """The same EncryptedArray over a host-CPU context: the slot tables
-    depend on (m, p, r, mvec) only, so they are shared; of the mask cache
-    only the host encodings are kept (the device masks are rebuilt on the
-    host when first used)."""
-    out = copy.copy(ea)
-    out.ctx = ctx_cpu
-    out._mask_cache = {k: v for k, v in ea._mask_cache.items()
-                       if isinstance(v, np.ndarray)}
-    return out
-
-
 def fat_masks(ea) -> tuple[int, int]:
     """(device masks built, their bytes) in the EA's cache."""
     from helib_tpu_torch.encoded import FatEncodedPtxt
@@ -882,12 +976,37 @@ def fat_masks(ea) -> tuple[int, int]:
     return len(fats), sum(t.numel() * t.element_size() for t in fats)
 
 
-def slot_path(dev, card: str) -> dict:
+def _slots_host(keys: dict, c2: dict, c3: dict, enc_a) -> tuple:
+    """Phase 12's mul_by_constant(fat) and rotate by 1 through the port on
+    the host CPU (in an `on_host` process): the card's keys carried by
+    convert.py, the slot tables rebuilt; (the two outputs' ctxt_arrays,
+    setup s, mul s, rotate s)."""
+    from helib_tpu_torch import convert
+    from helib_tpu_torch.context import Context
+    from helib_tpu_torch.ea import EncryptedArray
+    from helib_tpu_torch.encoded import FatEncodedPtxt
+
+    t0 = time.time()
+    ctx = Context(**SLOTS, scheme="bgv", device="cpu")
+    sk = keys_from_arrays(ctx, keys)
+    ea = EncryptedArray(ctx)
+    c2, c3 = (convert.ctxt_from_arrays(ctx, sk.pubkey, **x) for x in (c2, c3))
+    t1 = time.time()
+    mul = _times(c2, FatEncodedPtxt(ctx, enc_a, space=ea.pr))
+    t2 = time.time()
+    rot = ea.rotate(c3, 1, sk)
+    return (convert.ctxt_arrays(mul), convert.ctxt_arrays(rot), t1 - t0,
+            t2 - t1, time.time() - t2)
+
+
+def slot_path(dev, card: str, perop_host) -> dict:
     """The slot layer at m=31775 through K3 alone: each op driven with the
     counts reset before it and read after, its decrypt held to the PtxtBGV
     oracle exactly; the rotate by 1 held against the plain K3 and, with
-    mul_by_constant(fat), against the port on the host CPU; then timed
-    warm, and K3's row on the rotate's own inputs."""
+    mul_by_constant(fat), against the port on the host CPU (started in a
+    second process; the function returned last waits for it and checks);
+    then timed warm, and K3's row on the rotate's own inputs.  Phase 11's
+    host-CPU check (`perop_host`) is waited for after the setup."""
     from helib_tpu_torch import convert, ksstrategy
     from helib_tpu_torch.algos.replicate import replicate
     from helib_tpu_torch.algos.sums import total_sums
@@ -913,6 +1032,7 @@ def slot_path(dev, card: str) -> dict:
     t0 = time.time()
     ea = EncryptedArray(ctx)
     setup["ea_s"] = time.time() - t0
+    perop_host()
     pal = ctx.pal
     print(f"slots: {ctx!r}; d={ea.d}, {ea.nslots} slots, fast tables "
           f"{bool(ea._fast)}; {len(sk.matrices)} key-switching matrices; "
@@ -1011,26 +1131,21 @@ def slot_path(dev, card: str) -> dict:
     same_parts(r1, ref, "rotate by 1: kernel path != plain path")
     print("slots: rotate by 1 bit-identical to the plain-K3 chain")
 
-    # the rotate by 1 and mul_by_constant(fat) on the host CPU
-    t0 = time.time()
-    ctx_cpu = Context(**SLOTS, scheme="bgv", device="cpu")
-    sk_cpu = keys_on_host(ctx_cpu, sk)
-    ea_cpu = ea_on_host(ea, ctx_cpu)
-    c2_cpu = convert.ctxt_from_arrays(ctx_cpu, sk_cpu.pubkey,
-                                      **convert.ctxt_arrays(c2))
-    c3_cpu = convert.ctxt_from_arrays(ctx_cpu, sk_cpu.pubkey,
-                                      **convert.ctxt_arrays(c3))
-    t1 = time.time()
-    same_parts(c3, _times(c2_cpu, FatEncodedPtxt(ctx_cpu, ea.encode(a),
-                                                 space=ea.pr)),
-               "mul_by_constant(fat): GPU != CPU port")
-    t2 = time.time()
-    same_parts(r1, ea_cpu.rotate(c3_cpu, 1, sk_cpu),
-               "rotate by 1: GPU != CPU port")
-    print(f"slots: rotate by 1 and mul_by_constant(fat) bit-identical to "
-          f"the port on the host CPU at bits={ctx.bits} (setup "
-          f"{t1 - t0:.1f} s, mul {t2 - t1:.1f} s, rotate "
-          f"{time.time() - t2:.1f} s on {torch.get_num_threads()} threads)")
+    # the rotate by 1 and mul_by_constant(fat) on the host CPU, in a second
+    # process while phase 13's setup and cold run go on
+    job = on_host(_slots_host, keys_arrays(sk), convert.ctxt_arrays(c2),
+                  convert.ctxt_arrays(c3), ea.encode(a))
+    want = [convert.ctxt_arrays(x) for x in (c3, r1)]
+
+    def host_check():
+        mul, rot, *took = job.result()
+        same_arrays(want[0], mul, "slots mul_by_constant(fat): GPU != CPU "
+                    "port")
+        same_arrays(want[1], rot, "slots rotate by 1: GPU != CPU port")
+        print(f"slots: rotate by 1 and mul_by_constant(fat) bit-identical to "
+              f"the port on the host CPU at bits={SLOTS['bits']} (setup "
+              f"{took[0]:.1f} s, mul {took[1]:.1f} s, rotate {took[2]:.1f} s "
+              f"on {job.threads} threads, in a second process)")
 
     profile(lambda: ea.rotate(c3.copy(), 1, sk), (),
             "bgv slots m=31775 rotate by 1, warm")
@@ -1043,7 +1158,7 @@ def slot_path(dev, card: str) -> dict:
                       "fat_masks_count_bytes": masks,
                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
                       "conv_aux_row_rotate1": row, "card": card}))
-    return row, (ctx, sk, pk, ea)
+    return row, (ctx, sk, pk, ea), host_check
 
 
 def _plus(ct, c):
@@ -1085,7 +1200,6 @@ def same_parts(a, b, what: str):
 # HElib's bgv_thinboot / bgv_fatboot "tiny" size (benchmarks/thinboot_bench.py)
 BOOT_TINY = dict(m=1271, p=2, r=1, bits=600, c=3, mvec=(31, 41))
 BOOT_HWT, BOOT_TINY_SEED, BOOT_TINY_DATA_SEED = 64, 131, 133
-BOOT_WARM_REPS = 2
 # ms of the kernel row: at most this many of the path's K3 inputs are kept
 ROW_SAMPLES = 24
 # the thin bootstrap's stages, in the order thin_recrypt runs them
@@ -1222,29 +1336,6 @@ class plain_fats:
             f._full = full
 
 
-def sampled_kernel_row(fn, launches: int, name: str = "conv_aux") -> dict:
-    """kernel_row on a sample of at most ROW_SAMPLES of the inputs a run of
-    fn() gives the kernel (every launches // ROW_SAMPLES-th call; keeping
-    all of a bootstrap's inputs would hold gigabytes)."""
-    mod, attr = kernel_table()[name][:2]
-    orig, kept, count = getattr(mod, attr), [], [0]
-    step = max(1, launches // ROW_SAMPLES)
-
-    def rec(*args):
-        if count[0] % step == 0 and len(kept) < ROW_SAMPLES:
-            kept.append(args)
-        count[0] += 1
-        return orig(*args)
-    with swap(mod, attr, rec):
-        fn()
-    torch.cuda.synchronize()
-    if count[0] != launches:
-        raise AssertionError(f"sample run made {count[0]} {name}s, not "
-                             f"{launches}")
-    return {**row_on(kept, launches, name), "sampled_inputs": len(kept),
-            "shapes": sorted({str(tuple(a[0].shape)) for a in kept})}
-
-
 def boot_setup(ctx, sk, ea, fat: bool = False):
     """RecryptData (or FatRecryptData) with its setup split by host timers
     around the calls it makes: the big-space EncryptedArray, the maps and
@@ -1280,9 +1371,10 @@ def boot_check(name, ea, sk, low, out, slots, key, fat: bool = False):
     return out.capacity()
 
 
-def boot_path(ctx, sk, pk, ea, card: str) -> dict:
+def boot_path(ctx, sk, pk, ea, card: str, slots_host) -> dict:
     """Phase 13: the thin bootstrap at m=31775 on phase 12's context and
-    keys, through K3 alone."""
+    keys, through K3 alone; phase 12's host-CPU check (`slots_host`) is
+    waited for after the cold run, before the timed ones."""
     from helib_tpu_torch import recryption as rec
     from helib_tpu_torch.ops import conv as convmod
 
@@ -1298,17 +1390,14 @@ def boot_path(ctx, sk, pk, ea, card: str) -> dict:
     low = ea.encrypt(slots, pk, rng)
     low.bring_to_k(3)
 
-    def run(name, key, reps=1):
-        reset_launches()
-        out, h, e = timed(lambda: rec.thin_recrypt(low, rc, key), reps)
-        c = read_launches()
-        expect_only(c, "conv_aux", f"boot {name}")
-        cap = boot_check(name, ea, sk, low, out, slots, key)
-        return out, {"host_ms": h, "event_ms": e,
-                     "conv_aux": c["conv_aux"] // reps, "capacity": cap}
-
-    _, cold = run("cold", sk)
+    reset_launches()
+    out, h, e = timed(lambda: rec.thin_recrypt(low, rc, sk))
+    c = read_launches()
+    expect_only(c, "conv_aux", "boot cold")
+    cold = {"host_ms": h, "event_ms": e, "conv_aux": c["conv_aux"],
+            "capacity": boot_check("cold", ea, sk, low, out, slots, sk)}
     minted = len(sk.matrices)
+    slots_host()
     # the device constants the bootstrap reads (with phase 12's masks)
     fats = all_fats(ea, rc.ea_big, rc.slot_to_coeff, rc.coeff_to_slot)
     info = {"capacity_in": low.capacity(), "matrices_minted": minted,
@@ -1318,27 +1407,43 @@ def boot_path(ctx, sk, pk, ea, card: str) -> dict:
             "device_constants_count_bytes": (
                 len(fats), sum(f._full.numel() * 4 for f in fats
                                if f._full is not None))}
-    out_warm, warm = run("warm (PubKey)", pk, BOOT_WARM_REPS)
+    # a warm run with the PubKey, timed per stage and sampled for K3's row
+    marks, smp = stage_marks(rec, rc), sampling("conv_aux")
+    reset_launches()
+    with marks, smp:
+        out_warm, h, e = timed(lambda: rec.thin_recrypt(low, rc, pk))
+    c = read_launches()
+    expect_only(c, "conv_aux", "boot warm (PubKey)")
+    warm = {"host_ms": h, "event_ms": e, "conv_aux": c["conv_aux"],
+            "capacity": boot_check("warm (PubKey)", ea, sk, low, out_warm,
+                                   slots, pk)}
+    row = smp.row(c["conv_aux"])
+    stages = marks.ms()
+    # and one under the profiler: the device's busy share
+    held = []
+    reset_launches()
+    prof = profile(lambda: held.append(rec.thin_recrypt(low, rc, pk)), (),
+                   "bgv thin bootstrap m=31775, warm", warmup=False)
+    expect_only(read_launches(), "conv_aux", "boot warm (profiled)")
+    same_parts(out_warm, held[0], "boot: the profiled run != the timed run")
+    warm.update(profiled_ms=prof["wall_ms"], busy_share=prof["busy_share"],
+                launches=prof["launches"])
+    del held
     if len(sk.matrices) != minted:
         raise AssertionError("boot: the PubKey runs minted a matrix")
     print(f"boot: cold {json.dumps(cold)}; {minted} matrices minted "
-          f"({info['matrix_bytes'] / 2**20:.1f} MiB); warm, the mean of "
-          f"{BOOT_WARM_REPS} PubKey runs, {json.dumps(warm)}; decrypts, "
-          f"capacity and the multiply after it checked on both")
-
-    # one warm run both timed per stage and sampled for K3's row
-    marks = stage_marks(rec, rc)
-
-    def staged():
-        with marks:
-            rec.thin_recrypt(low, rc, pk)
-    row = sampled_kernel_row(staged, warm["conv_aux"])
-    stages = marks.ms()
+          f"({info['matrix_bytes'] / 2**20:.1f} MiB); warm (the PubKey) "
+          f"{json.dumps(warm)}; decrypts, capacity and the multiply after "
+          f"it checked on both; the profiled run equal to the timed one")
     print("boot: host ms per stage " + ", ".join(
         f"{k} {v:.1f}" for k, v in stages.items()))
 
-    # one warm bootstrap with the plain K3, its diagonals rebuilt plain too
-    with swap(convmod, "conv_aux", convmod.conv_aux_plain), plain_fats(fats):
+    # one warm bootstrap with the plain K3 (graph-replayed), its diagonals
+    # rebuilt plain too
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    plain = graphed(convmod.conv_aux_plain)
+    t0 = time.time()
+    with swap(convmod, "conv_aux", plain), plain_fats(fats):
         reset_launches()
         ref = rec.thin_recrypt(low, rc, pk)
         torch.cuda.synchronize()
@@ -1346,25 +1451,43 @@ def boot_path(ctx, sk, pk, ea, card: str) -> dict:
             raise AssertionError("reference run launched a kernel")
     same_parts(out_warm, ref, "boot: kernel path != plain path")
     print(f"boot: warm bootstrap bit-identical to the plain-K3 chain "
-          f"({len(fats)} device constants rebuilt plain)")
-
-    t0 = time.time()
-    profile(lambda: rec.thin_recrypt(low, rc, pk), (),
-            "bgv thin bootstrap m=31775, warm")
-    print(f"boot: the profile took {time.time() - t0:.1f} s")
+          f"({len(fats)} device constants rebuilt plain; {len(plain.graphs)} "
+          f"graphs; {time.time() - t0:.1f} s)")
+    del plain, ref
+    gc.collect()
+    torch.cuda.empty_cache()
     print(json.dumps({"metric": "torch_cuda_bgv_thinboot_m31775_b600",
                       "e": rc.e, "ePrime": rc.ePrime, "setup_s": setup,
                       "cold": cold, "warm": warm, "stage_ms": stages,
-                      **info, "conv_aux_row": row,
-                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+                      **info, "conv_aux_row": row, "peak_mem_gb": peak,
                       "card": card}))
     return row
 
 
+def _thin_boot_host(keys: dict, state: dict, low: dict) -> tuple:
+    """Phase 14's warm thin bootstrap through the port on the host CPU (in
+    an `on_host` process): the card's keys and recryption state carried by
+    convert.py, the slot tables rebuilt (they depend on (m, p, r, mvec)
+    alone); (the output's ctxt_arrays, setup s, bootstrap s)."""
+    from helib_tpu_torch import convert, recryption as rec
+    from helib_tpu_torch.context import Context
+    from helib_tpu_torch.ea import EncryptedArray
+
+    t0 = time.time()
+    ctx = Context(**BOOT_TINY, scheme="bgv", device="cpu")
+    sk = keys_from_arrays(ctx, keys)
+    rc = rec.RecryptData(ctx, sk, EncryptedArray(ctx), hwt=BOOT_HWT)
+    convert.load_recrypt_state(rc, sk, state)
+    ct = convert.ctxt_from_arrays(ctx, sk.pubkey, **low)
+    t1 = time.time()
+    out = rec.thin_recrypt(ct, rc, sk.pubkey)
+    return convert.ctxt_arrays(out), t1 - t0, time.time() - t1
+
+
 def tiny_boot_path(dev, card: str) -> dict:
     """Phase 14: thin and fat bootstraps at m=1271 through K3 alone; the
-    thin one held against the port on the host CPU at the full 600
-    bits."""
+    thin one held against the port on the host CPU at the full 600 bits,
+    which runs in a second process while the fat one runs on the card."""
     from helib_tpu_torch import convert, recryption as rec
     from helib_tpu_torch.context import Context
     from helib_tpu_torch.ea import EncryptedArray
@@ -1373,8 +1496,9 @@ def tiny_boot_path(dev, card: str) -> dict:
     res = {}
 
     def drive(fat: bool):
-        """Setup, a cold run with the SecKey and a warm one with the PubKey,
-        each checked; returns what the thin checks below need."""
+        """Setup, a cold run with the SecKey and a warm one with the PubKey
+        (nothing minted), each checked; returns what the thin checks below
+        need."""
         name = "fat" if fat else "thin"
         t0 = time.time()
         ctx = Context(**BOOT_TINY, scheme="bgv", device=dev)
@@ -1390,14 +1514,19 @@ def tiny_boot_path(dev, card: str) -> dict:
         low = ea.encrypt(slots, pk, rng)
         low.bring_to_k(3)
         fn = rec.fat_recrypt if fat else rec.thin_recrypt
+        smp = sampling("conv_aux")
         for which, key in (("cold", sk), ("warm", pk)):
             n = len(sk.matrices)
             reset_launches()
-            out, h, e = timed(lambda: fn(low, rc, key))
+            # K3's row rides on the thin warm run
+            rides = which == "warm" and not fat
+            with smp if rides else contextlib.nullcontext():
+                out, h, e = timed(lambda: fn(low, rc, key))
             c = read_launches()
             expect_only(c, "conv_aux", f"boot m=1271 {name} {which}")
             if which == "warm" and len(sk.matrices) != n:
-                raise AssertionError("boot m=1271: the PubKey run minted")
+                raise AssertionError(f"boot m=1271 {name}: the PubKey run "
+                                     f"minted")
             cap = boot_check(f"m=1271 {name} {which}", ea, sk, low, out,
                              slots, key, fat)
             r[which] = {"host_ms": h, "event_ms": e,
@@ -1406,37 +1535,456 @@ def tiny_boot_path(dev, card: str) -> dict:
         print(f"boot m=1271 {name}: {rc!r}; {json.dumps(r)}; decrypts "
               f"exactly, capacity {low.capacity():.1f} -> "
               f"{out.capacity():.1f}")
-        return rc, sk, ea, low, out
+        return rc, sk, low, out, smp
 
     torch.cuda.reset_peak_memory_stats()
-    rc, sk, ea, low, out = drive(fat=False)
-    # the warm thin bootstrap on the host CPU: slot tables shared, keys and
-    # the recryption state carried over by convert.py
-    t0 = time.time()
-    ctx_cpu = Context(**BOOT_TINY, scheme="bgv", device="cpu")
-    sk_cpu = keys_on_host(ctx_cpu, sk)
-    rc_cpu = rec.RecryptData(ctx_cpu, sk_cpu, ea_on_host(ea, ctx_cpu),
-                             hwt=BOOT_HWT)
-    convert.load_recrypt_state(rc_cpu, sk_cpu, convert.recrypt_state(rc, sk))
-    low_cpu = convert.ctxt_from_arrays(ctx_cpu, sk_cpu.pubkey,
-                                       **convert.ctxt_arrays(low))
-    t1 = time.time()
-    host = rec.thin_recrypt(low_cpu, rc_cpu, sk_cpu.pubkey)
-    same_parts(out, host, "boot m=1271 thin: GPU != CPU port")
-    print(f"boot m=1271 thin: warm bootstrap bit-identical to the port on "
-          f"the host CPU at bits={BOOT_TINY['bits']} (setup {t1 - t0:.1f} s, "
-          f"bootstrap {time.time() - t1:.1f} s on {torch.get_num_threads()} "
-          f"threads)")
-    row = sampled_kernel_row(lambda: rec.thin_recrypt(low, rc, sk.pubkey),
-                             res["thin"]["warm"]["conv_aux"])
-    del rc, sk, ea, low, out, rc_cpu, sk_cpu
+    rc, sk, low, out, smp = drive(fat=False)
+    row = smp.row(res["thin"]["warm"]["conv_aux"])
+    # the warm thin bootstrap on the host CPU, in a second process while
+    # the fat one runs on the card
+    job = on_host(_thin_boot_host, keys_arrays(sk),
+                  convert.recrypt_state(rc, sk), convert.ctxt_arrays(low))
+    want = convert.ctxt_arrays(out)
+    del rc, sk, low, out, smp
     gc.collect()
     torch.cuda.empty_cache()
     drive(fat=True)
+    host, setup_s, run_s = job.result()
+    same_arrays(want, host, "boot m=1271 thin: GPU != CPU port")
+    print(f"boot m=1271 thin: warm bootstrap bit-identical to the port on "
+          f"the host CPU at bits={BOOT_TINY['bits']} (setup {setup_s:.1f} s, "
+          f"bootstrap {run_s:.1f} s on {job.threads} threads, in a second "
+          f"process)")
     print(json.dumps({"metric": "torch_cuda_bgv_boot_m1271_b600", **res,
                       "conv_aux_row_thin": row,
                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
                       "card": card}))
+    return row
+
+
+# ---------------------------------------------------------------------------
+# HElib's circuit library at m=4095 (K3) and MatMulCKKS at m=16384 (K2)
+# ---------------------------------------------------------------------------
+
+# HElib's BGV_binary_arithmetic example size (BASELINE.json's first
+# configuration): 144 slots of GF(2^12), hypercube [6, 4, 6], all native,
+# 17 ciphertext and 9 special primes, B = 8192
+BINARY = dict(m=4095, p=2, r=1, bits=500, c=2, mvec=(7, 5, 9, 13))
+BINARY_SEED, BINARY_DATA_SEED, BINARY_PERM_SEED = 151, 153, 1
+BINARY_HYPERCUBE = ([6, 4, 6], [True, True, True])
+# the least depth bound optimal_upper accepts on [6, 4, 6]: 21 rotations
+# through 13 distinct matrices for the default_rng(1) permutation
+BINARY_DEPTH = 5
+BINARY_NETWORK = (5, 21, 13)
+# HElib's ckks_basic size m=16384 (benchmarks/bench_suite.py:225): 4096
+# slots, N = 8192; BSGS with g = 64
+CKKS_MM = dict(m=16384, p=-1, r=30, bits=360, c=3, scheme="ckks")
+CKKS_MM_SEED, CKKS_MM_DATA_SEED = 161, 163
+# |M z - the decrypt without its mitigation noise|: 2.9e-3 on the H100; the
+# 4 x error_bound() limit (68) is near max |M z| (80) and would pass a wrong
+# product
+CKKS_MM_RAW_TOL = 1e-2
+
+
+class sampling:
+    """Context manager keeping a uniform sample of at most ROW_SAMPLES of
+    the inputs kernel `name` gets while it is open (reservoir sampling from
+    a fixed seed) and the count of its calls; `.row(launches)` is the
+    kernel's row on them."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.mod, self.attr = kernel_table()[name][:2]
+        self.kept, self.count = [], 0
+        self.rng = np.random.default_rng(0)
+
+    def __enter__(self):
+        orig = getattr(self.mod, self.attr)
+
+        def rec(*args):
+            self.count += 1
+            if len(self.kept) < ROW_SAMPLES:
+                self.kept.append(args)
+            else:
+                j = int(self.rng.integers(self.count))
+                if j < ROW_SAMPLES:
+                    self.kept[j] = args
+            return orig(*args)
+        self.sw = swap(self.mod, self.attr, rec)
+        self.sw.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.sw.__exit__(*exc)
+
+    def row(self, launches: int) -> dict:
+        """The row; `launches` is the count read while the sample was open,
+        and must equal the calls the sample saw."""
+        if self.count != launches:
+            raise AssertionError(f"the sample saw {self.count} {self.name} "
+                                 f"calls, not {launches}")
+        return {**row_on(self.kept, launches, self.name),
+                "sampled_inputs": len(self.kept),
+                "shapes": sorted({str(tuple(a[0].shape))
+                                  for a in self.kept})}
+
+
+class graphed:
+    """A plain version fn(x, *tables) run as one replay of a CUDA graph of
+    its kernels, captured on first use for each shape of x and each set of
+    tables (held, so no other object takes their ids): its hundreds of
+    launches a call become one.  The same kernels on the same inputs, so
+    the same residues."""
+
+    def __init__(self, fn):
+        self.fn, self.graphs = fn, {}
+
+    def __call__(self, x, *tables):
+        key = (tuple(x.shape),) + tuple(
+            a if isinstance(a, (bool, int)) else id(a) for a in tables)
+        if key not in self.graphs:
+            xin = x.contiguous().clone()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                self.fn(xin, *tables)
+            torch.cuda.current_stream().wait_stream(side)
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                out = self.fn(xin, *tables)
+            self.graphs[key] = (g, xin, out, tables)
+        g, xin, out, _ = self.graphs[key]
+        xin.copy_(x)
+        g.replay()
+        return out.clone()
+
+
+def matmul1d_oracle(pal, dim: int, M, v, p: int) -> np.ndarray:
+    """y[s] = sum_j M[e, j] v[s with coordinate j along dim], e the
+    coordinate of s along dim (MatMul1D's get(i, j) convention)."""
+    out = np.zeros(len(v), dtype=np.int64)
+    for s in range(len(v)):
+        cs = list(pal.coords(s))
+        e = cs[dim]
+        for j in range(pal.orders[dim]):
+            cs[dim] = j
+            out[s] += int(M[e, j]) * int(v[pal.slot_index(tuple(cs))])
+    return out % p
+
+
+def circuits_path(dev, card: str) -> dict:
+    """Phase 15: HElib's circuit library at m=4095 through K3 alone, every
+    matrix minted first and each op run with the PubKey; each op's decrypt
+    held to numpy, the permutation to the plain K3 and the 8-bit add to
+    the port on the host CPU."""
+    from helib_tpu_torch import convert, ksstrategy
+    from helib_tpu_torch.algos import binary as B
+    from helib_tpu_torch.algos import intraslot, random_matrices
+    from helib_tpu_torch.algos import optimize_perms, tablelookup
+    from helib_tpu_torch.algos.query import Database
+    from helib_tpu_torch.context import Context
+    from helib_tpu_torch.ea import EncryptedArray
+    from helib_tpu_torch.keys import SecKey, PubKey
+    from helib_tpu_torch.ops import conv as convmod
+
+    torch.cuda.reset_peak_memory_stats()
+    setup = {}
+    t0 = time.time()
+    ctx = Context(**BINARY, scheme="bgv", device=dev)
+    sk = SecKey(ctx, seed=BINARY_SEED)
+    pk = PubKey(sk)
+    ea = EncryptedArray(ctx)
+    torch.cuda.synchronize()
+    setup["context_keys_ea_s"] = time.time() - t0
+    pal = ctx.pal
+    if (pal.orders, pal.native) != BINARY_HYPERCUBE:
+        raise AssertionError(f"circuits: hypercube {pal.orders} "
+                             f"{pal.native}")
+    t0 = time.time()
+    pip = optimize_perms.PermIndepPrecomp(ea, BINARY_DEPTH)
+    perm = np.random.default_rng(BINARY_PERM_SEED).permutation(ea.nslots)
+    pp = optimize_perms.PermPrecomp(pip, perm)
+    unpack_enc = intraslot.build_unpack_slot_encoding(ea)
+    setup["network_and_unpack_maps_s"] = time.time() - t0
+    t0 = time.time()
+    ksstrategy.add_relin_matrix(sk)
+    ksstrategy.add_frb_matrices(sk)
+    before = len(sk.matrices)
+    ksstrategy.add_matrices_4_network(sk, pp)
+    torch.cuda.synchronize()
+    setup["matrices_s"] = time.time() - t0
+    minted = len(sk.matrices)
+    network = (pip.depth, pp.rotations(), minted - before)
+    v = np.arange(ea.nslots)
+    if not np.array_equal(pp.apply_vector(v), v[perm]):
+        raise AssertionError("circuits: apply_vector != v[perm]")
+    print(f"circuits: {ctx!r}; d={ea.d}, {ea.nslots} slots, B = "
+          f"{ctx.ntt_fwd.B}; SecKey(seed="
+          f"{BINARY_SEED}), data default_rng({BINARY_DATA_SEED}), "
+          f"permutation default_rng({BINARY_PERM_SEED}); network D="
+          f"{BINARY_DEPTH}: depth {pip.depth}, rotations() "
+          f"{pp.rotations()}, get_cost() {pip.get_cost()}, "
+          f"{minted - before} matrices minted for it "
+          f"({sorted((int(a), int(b)) for a, b in pp.needed_rotations())}); "
+          f"{minted} matrices in all (relin, {ea.d - 1} Frobenius, the "
+          f"network's); apply_vector == v[perm]; setup {json.dumps(setup)}")
+    if network != BINARY_NETWORK or pip.get_cost() != BINARY_NETWORK[1]:
+        raise AssertionError(f"circuits: network {network}")
+
+    rng = np.random.default_rng(BINARY_DATA_SEED)
+    n = ea.nslots
+    a8, b8 = rng.integers(0, 256, n), rng.integers(0, 256, n)
+    b8[:4] = a8[:4]
+    a4, b4 = rng.integers(0, 16, n), rng.integers(0, 16, n)
+    four = [rng.integers(0, 16, n) for _ in range(4)]
+    idx = rng.integers(0, 16, n)
+    cols = [rng.integers(0, 2, n) for _ in range(3)]
+    qv = [int(x) for x in rng.integers(0, 2, 3)]
+    bits = rng.integers(0, 2, n)
+    full = [rng.integers(0, 2, ea.d) for _ in range(n)]
+    t0 = time.time()
+    ca8, cb8 = (B.encrypt_number(ea, pk, rng, x, 8) for x in (a8, b8))
+    ca4, cb4 = (B.encrypt_number(ea, pk, rng, x, 4) for x in (a4, b4))
+    cfour = [B.encrypt_number(ea, pk, rng, x, 4) for x in four]
+    cidx = B.encrypt_number(ea, pk, rng, idx, 4)
+    db = Database(ea, pk, [ea.encrypt(list(c), pk, rng) for c in cols])
+    qc = {i: ea.encrypt([qv[i]] * n, pk, rng) for i in range(3)}
+    cbits = ea.encrypt(list(bits), pk, rng)
+    cfull = ea.encrypt(full, pk, rng)
+    torch.cuda.synchronize()
+    setup["encrypt_s"] = time.time() - t0
+    table = tablelookup.build_lookup_table(lambda i: bin(i).count("1"), 4,
+                                           ea.pr)
+    mat, M = random_matrices.random_matmul1d(ea, 0, rng)
+    m = [(c == q).astype(np.int64) for c, q in zip(cols, qv)]
+
+    def number(want):
+        return lambda out: B.decrypt_number(ea, sk, out), want
+
+    def ints(want):
+        return lambda out: ea.decrypt_ints(out, sk), want
+
+    def unpacked(out):
+        return np.stack([ea.decrypt_ints(x, sk) for x in out], 1)
+    # name -> (op, (decrypt, oracle))
+    ops = {
+        "add_two_numbers 8+8": (
+            lambda: B.add_two_numbers(ea, ca8, cb8, pk), number(a8 + b8)),
+        "mult_two_numbers 4x4": (
+            lambda: B.mult_two_numbers(ea, ca4, cb4, pk), number(a4 * b4)),
+        "compare_two_numbers 8": (
+            lambda: list(B.compare_two_numbers(ea, ca8, cb8, pk)),
+            (lambda out: np.stack([ea.decrypt_ints(x, sk) for x in out]),
+             np.stack([a8 > b8, a8 == b8]).astype(np.int64))),
+        "add_many_numbers 4x4": (
+            lambda: B.add_many_numbers(ea, cfour, pk), number(sum(four))),
+        "table_lookup 4-bit": (
+            lambda: tablelookup.table_lookup(ea, cidx, table, pk),
+            ints(np.array(table)[idx])),
+        "contains 0 AND 1": (lambda: db.contains("0 AND 1", qc),
+                             ints(m[0] & m[1])),
+        "contains 0 OR NOT 1": (lambda: db.contains("0 OR NOT 1", qc),
+                                ints(m[0] | (1 - m[1]))),
+        "contains (0 AND 1) OR 2": (
+            lambda: db.contains("(0 AND 1) OR 2", qc),
+            ints((m[0] & m[1]) | m[2])),
+        "permutation": (lambda: pp.apply(cbits, pk), ints(bits[perm])),
+        "unpack": (lambda: intraslot.unpack(ea, cfull, pk, unpack_enc),
+                   (unpacked, np.array(full))),
+        "random_matmul1d dim 0": (
+            lambda: mat.apply(cbits, pk),
+            ints(matmul1d_oracle(pal, 0, M, bits, ea.pr))),
+    }
+    res, outs, total, warm_total = {}, {}, 0, 0
+    smp = sampling("conv_aux")
+    for name, (f, (dec, want)) in ops.items():
+        reset_launches()
+        out, cold_h, cold_e = timed(f)
+        c = read_launches()
+        expect_only(c, "conv_aux", f"circuits {name}")
+        if not np.array_equal(dec(out), want):
+            raise AssertionError(f"circuits {name}: decrypt != numpy")
+        with smp:
+            reset_launches()
+            _, warm_h, warm_e = timed(f)
+            cw = read_launches()
+        expect_only(cw, "conv_aux", f"circuits {name} warm")
+        total += c["conv_aux"]
+        warm_total += cw["conv_aux"]
+        cts = out if isinstance(out, list) else [out]
+        outs[name] = out
+        res[name] = {"cold_host_ms": cold_h, "cold_event_ms": cold_e,
+                     "warm_host_ms": warm_h, "warm_event_ms": warm_e,
+                     "conv_aux": c["conv_aux"],
+                     "capacity": min(x.capacity() for x in cts)}
+        print(f"circuits: {name} {json.dumps(res[name])}")
+    # repack of the unpacked ciphertexts
+    parts = outs["unpack"]
+    reset_launches()
+    back, h, e = timed(lambda: intraslot.repack(ea, parts))
+    c = read_launches()
+    expect_only(c, "conv_aux", "circuits repack")
+    if not np.array_equal(sk.decrypt_bgv(back), ea.encode(full)):
+        raise AssertionError("circuits repack: decrypt != the full slots")
+    res["repack"] = {"cold_host_ms": h, "cold_event_ms": e,
+                     "conv_aux": c["conv_aux"],
+                     "capacity": back.capacity()}
+    total += c["conv_aux"]
+    if len(sk.matrices) != minted:
+        raise AssertionError("circuits: a matrix was minted during the ops")
+    print(f"circuits: every op and repack decrypted to numpy in all {n} "
+          f"slots through K3 alone ({total} launches), no matrix minted")
+    busy = profile(ops["add_two_numbers 8+8"][0], (),
+                   "circuits m=4095 add_two_numbers 8+8, warm", top=5,
+                   warmup=False)
+
+    # the permutation with the plain K3
+    with swap(convmod, "conv_aux", convmod.conv_aux_plain):
+        reset_launches()
+        ref = pp.apply(cbits, pk)
+        torch.cuda.synchronize()
+        if any(read_launches().values()):
+            raise AssertionError("reference run launched a kernel")
+    same_parts(outs["permutation"], ref,
+               "circuits permutation: kernel path != plain path")
+    print("circuits: the permutation bit-identical to the plain-K3 chain")
+
+    # the 8-bit add on the host CPU, keys carried over by convert.py
+    t0 = time.time()
+    ctx_cpu = Context(**BINARY, scheme="bgv", device="cpu")
+    sk_cpu = keys_on_host(ctx_cpu, sk)
+    ea_cpu = EncryptedArray(ctx_cpu)
+    host_in = [[convert.ctxt_from_arrays(ctx_cpu, sk_cpu.pubkey,
+                                         **convert.ctxt_arrays(x))
+                for x in num] for num in (ca8, cb8)]
+    t1 = time.time()
+    host = B.add_two_numbers(ea_cpu, *host_in, sk_cpu.pubkey)
+    for i, (x, y) in enumerate(zip(outs["add_two_numbers 8+8"], host)):
+        same_parts(x, y, f"circuits add bit {i}: GPU != CPU port")
+    print(f"circuits: the 8-bit add bit-identical to the port on the host "
+          f"CPU at bits={ctx.bits} (setup {t1 - t0:.1f} s, add "
+          f"{time.time() - t1:.1f} s on {torch.get_num_threads()} threads)")
+    row = smp.row(warm_total)
+    print(json.dumps({"metric": "torch_cuda_bgv_circuits_m4095_b500",
+                      "setup_s": setup, "ops": res,
+                      "conv_aux_launches": total,
+                      "profiled_add": busy,
+                      "network": {"depth_bound": BINARY_DEPTH,
+                                  "depth": pip.depth,
+                                  "rotations": pp.rotations(),
+                                  "cost": pip.get_cost(),
+                                  "matrices": minted - before},
+                      "matrices_minted": minted,
+                      "conv_aux_row_warm_ops": row,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+                      "card": card}))
+    return row
+
+
+def matmul_ckks_path(dev, card: str) -> dict:
+    """Phase 16: MatMulCKKS with BSGS at m=16384 through K2 alone: within
+    4 x error_bound() of M @ z, and bit-identical to the same apply with
+    the plain K2 (its diagonals replayed from the first run)."""
+    from helib_tpu_torch.algos.matmul_ckks import MatMulCKKS
+    from helib_tpu_torch.ckks import EncryptedArrayCKKS
+    from helib_tpu_torch.context import Context
+    from helib_tpu_torch.keys import SecKey, PubKey, SKHandle
+    from helib_tpu_torch.nt.numbth import inv_mod
+    from helib_tpu_torch.ops import ntt_fused
+
+    torch.cuda.reset_peak_memory_stats()
+    setup = {}
+    t0 = time.time()
+    ctx = Context(**CKKS_MM, device=dev)
+    sk = SecKey(ctx, seed=CKKS_MM_SEED)
+    pk = PubKey(sk)
+    ea = EncryptedArrayCKKS(ctx)
+    n = ea.nslots
+    g = math.isqrt(n)
+    inv5 = inv_mod(5, ctx.m)
+    for amt in list(range(1, g)) + list(range(g, n, g)):
+        sk.gen_ks_matrix(SKHandle(1, pow(inv5, amt, ctx.m), 0))
+    torch.cuda.synchronize()
+    setup["context_keys_matrices_s"] = time.time() - t0
+    minted = len(sk.matrices)
+    rng = np.random.default_rng(CKKS_MM_DATA_SEED)
+    M = rng.uniform(-1, 1, (n, n))
+    z = rng.uniform(-1, 1, n)
+    ct = ea.encrypt(z, pk, rng)
+    mm = MatMulCKKS(ea, lambda i, j: M[i, j])
+    print(f"matmul_ckks: {ctx!r}; N = {ea.N}, {n} slots, BSGS g = {g}; "
+          f"SecKey(seed={CKKS_MM_SEED}), M and z uniform in [-1, 1] from "
+          f"default_rng({CKKS_MM_DATA_SEED}); {minted} rotation matrices "
+          f"minted first; setup {json.dumps(setup)}")
+
+    # the diagonals and encodes, recorded for the plain-K2 rerun
+    diags, encodes = [], []
+
+    def recorded(fn, into, keep=lambda v: v):
+        def rec(*a, **kw):
+            out = fn(*a, **kw)
+            into.append(keep(out))
+            return out
+        return rec
+    smp = sampling("ntt")
+    with timers((mm, "_diag", "diag_extraction_s"),
+                (ea, "encode", "encode_s")) as tm, swap(
+            mm, "_diag", recorded(mm._diag, diags)), swap(
+            ea, "encode", recorded(ea.encode, encodes, lambda e: (
+                e[0].astype(np.int64),) + e[1:])), smp:
+        reset_launches()
+        out, host, event = timed(lambda: mm.apply(ct, pk, bsgs=True))
+        c = read_launches()
+    expect_only(c, "ntt", "matmul_ckks")
+    if len(sk.matrices) != minted:
+        raise AssertionError("matmul_ckks: a matrix was minted")
+    want = M @ z
+    got = ea.decrypt(out, sk)
+    err = float(np.max(np.abs(got - want)))
+    raw_err = float(np.max(np.abs(ea.raw_decrypt(out, sk) - want)))
+    bound = out.error_bound()
+    if not err <= 4 * bound:
+        raise AssertionError(f"matmul_ckks: |dec - M z| = {err} > 4 x "
+                             f"{bound}")
+    if not raw_err <= CKKS_MM_RAW_TOL:
+        raise AssertionError(f"matmul_ckks: |raw dec - M z| = {raw_err} > "
+                             f"{CKKS_MM_RAW_TOL}")
+    split = {"apply_ms": host, "event_ms": event,
+             **{k.replace("_s", "_ms"): v * 1e3 for k, v in tm.s.items()}}
+    split["device_and_launch_ms"] = (host - split["diag_extraction_ms"]
+                                     - split["encode_ms"])
+    print(f"matmul_ckks: one apply {json.dumps(split)} ({len(diags)} "
+          f"diagonals, {c['ntt']} K2 launches, {sum(c.values())} in all); "
+          f"max |dec - M z| = {err:.3e} against 4 x error_bound() = "
+          f"{4 * bound:.3e} (max |M z| = {np.max(np.abs(want)):.3e}; "
+          f"without the decrypt's mitigation noise {raw_err:.3e}, within "
+          f"{CKKS_MM_RAW_TOL})")
+
+    # the same apply with the plain K2 (graph-replayed), the diagonals and
+    # encodes replayed in order
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    next_diag, next_encode = iter(diags).__next__, iter(encodes).__next__
+    plain = graphed(ntt_fused.ntt_plain)
+    with swap(ntt_fused, "ntt", plain), swap(
+            mm, "_diag", lambda *a, **kw: next_diag()), swap(
+            ea, "encode", lambda *a, **kw: next_encode()):
+        reset_launches()
+        t0 = time.time()
+        ref = mm.apply(ct, pk, bsgs=True)
+        torch.cuda.synchronize()
+        plain_s = time.time() - t0
+        if any(read_launches().values()):
+            raise AssertionError("reference run launched a kernel")
+    same_parts(out, ref, "matmul_ckks: kernel path != plain path")
+    print(f"matmul_ckks: bit-identical to the plain-K2 chain ({plain_s:.1f} "
+          f"s, {len(plain.graphs)} graphs)")
+    del diags, encodes, plain, ref
+    row = smp.row(c["ntt"])
+    print(json.dumps({"metric": "torch_cuda_ckks_matmul_m16384_b360",
+                      "setup_s": setup, "ms": split, "ntt": c["ntt"],
+                      "max_abs_err": err, "max_abs_err_raw": raw_err,
+                      "error_bound": bound, "plain_rerun_s": plain_s,
+                      "ntt_row": row, "peak_mem_gb": peak, "card": card}))
     return row
 
 
@@ -1471,13 +2019,15 @@ def timing(fn, args, iters: int = 10) -> dict:
             "ms_per_unbatched_call": out["unbatched"][1]}
 
 
-def profile(fn, args, label: str, top: int = 10):
+def profile(fn, args, label: str, top: int = 10, warmup: bool = True):
     """Device time of one call by kernel name (torch.profiler, the card's
     activity alone), and the call's wall time: the share of the call the
-    device is busy.  The raw kernel events are summed here: key_averages()
-    takes minutes over a bootstrap's ~4e5 launches."""
+    device is busy, after one unprofiled call unless `warmup` is False.
+    The raw kernel events are summed here: key_averages() takes minutes
+    over a bootstrap's ~4e5 launches."""
     from torch.profiler import profile as prof, ProfilerActivity
-    fn(*args)
+    if warmup:
+        fn(*args)
     torch.cuda.synchronize()
     with prof(activities=[ProfilerActivity.CUDA]) as p:
         t0 = time.time()
@@ -1493,11 +2043,14 @@ def profile(fn, args, label: str, top: int = 10):
     rows = sorted(((k, c, ns / 1e6) for k, (c, ns) in by_name.items()),
                   key=lambda r: -r[2])
     busy = sum(r[2] for r in rows)
+    launches = sum(r[1] for r in rows)
     print(f"profile ({label}): one call {wall * 1e3:.3f} ms wall, device "
           f"busy {busy:.3f} ms ({100 * busy / (wall * 1e3):.1f} %), "
-          f"{sum(r[1] for r in rows)} kernel launches")
+          f"{launches} kernel launches")
     for key, count, ms in rows[:top]:
         print(f"  {ms:9.3f} ms {count:5d}x  {key[:90]}")
+    return {"wall_ms": wall * 1e3, "busy_ms": busy,
+            "busy_share": busy / (wall * 1e3), "launches": launches}
 
 
 def kernel_table() -> dict:
@@ -2001,13 +2554,13 @@ def main() -> int:
     ckks_big_path(dev, card)
     torch.cuda.empty_cache()
 
-    kernels["conv_aux"] = perop_path(dev, card)
+    kernels["conv_aux"], perop_host = perop_path(dev, card)
     torch.cuda.empty_cache()
     kernels["p1"], kernels["p2"] = probe_path(dev, card)
     torch.cuda.empty_cache()
-    _, held = slot_path(dev, card)
+    _, held, slots_host = slot_path(dev, card, perop_host)
     t0 = time.time()
-    boot_path(*held, card)
+    boot_path(*held, card, slots_host)
     print(f"chip_smoke: phase 13 took {time.time() - t0:.1f} s")
     del held
     gc.collect()         # the stage wrappers leave reference cycles
@@ -2015,6 +2568,16 @@ def main() -> int:
     t0 = time.time()
     tiny_boot_path(dev, card)
     print(f"chip_smoke: phase 14 took {time.time() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    circuits_path(dev, card)
+    print(f"chip_smoke: phase 15 took {time.time() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    matmul_ckks_path(dev, card)
+    print(f"chip_smoke: phase 16 took {time.time() - t0:.1f} s")
     print(f"chip_smoke: {time.time() - start:.1f} s of command time after "
           f"start-up")
     print(card)

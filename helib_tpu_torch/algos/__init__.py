@@ -1,2 +1,4 @@
-"""The algorithm library on slots (helib_tpu.algos): totalSums, runningSums
-and replication so far."""
+"""The algorithm library on slots (helib_tpu.algos): sums, replication,
+matrix products, linearized polynomials, digit extraction, permutation
+networks, binary circuits, table lookup, equality testing, intraslot
+packing and the encrypted database query."""

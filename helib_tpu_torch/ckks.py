@@ -174,9 +174,8 @@ class EncryptedArrayCKKS:
     def mul_const(self, ctxt: Ctxt, values, scale: int | None = None):
         """Multiply by encoded constant slots."""
         coeffs, scale_v, mag, err = self.encode(values, scale)
-        pt = small_coeffs_to_rt(
-            self.ctx, np.array([int(c) for c in coeffs], dtype=np.int64),
-            ctxt.k, ctxt.special)
+        pt = small_coeffs_to_rt(self.ctx, coeffs.astype(np.int64), ctxt.k,
+                                ctxt.special)
         out = ctxt.copy()
         out.parts = [(h, rt_mul(self.ctx, d, pt, out.k, out.special))
                      for h, d in out.parts]

@@ -3,8 +3,7 @@
 Which automorphism matrices to pre-generate (rotations are the expensive
 resource; HElib's keySwitching.h add*Matrices), and the multi-hop
 key-switch map that `Ctxt.smart_automorph` takes when an exact matrix is
-missing (HElib's setKeySwitchMap).  `add_matrices_4_network` waits for the
-permutation networks (algos/permutations).
+missing (HElib's setKeySwitchMap).
 """
 
 from __future__ import annotations
@@ -98,6 +97,23 @@ def add_minimal_frb_matrices(sk: SecKey):
     if d > KS_MIN_THRESHOLD:
         g = ks_giant_step_size(d)
         sk.gen_ks_matrix(SKHandle(1, pow(ctx.p, g, ctx.m), 0))
+
+
+def add_matrices_4_network(sk: SecKey, pp):
+    """Exactly the automorphism matrices a built permutation network uses
+    (addMatrices4Network, keySwitching.h:249, keySwitching.cpp:667); `pp`
+    is an algos.optimize_perms.PermPrecomp."""
+    pal = sk.ctx.pal
+    m = sk.ctx.m
+    for dim, amt in sorted(pp.needed_rotations()):
+        dim, amt = int(dim), int(amt)
+        if amt % pal.orders[dim] == 0:
+            continue
+        g, D = int(pal.gens[dim]), int(pal.orders[dim])
+        amt %= D
+        sk.gen_ks_matrix(SKHandle(1, pow(g, amt, m), 0))
+        if not pal.native[dim]:
+            sk.gen_ks_matrix(SKHandle(1, pow(g, amt - D, m), 0))
 
 
 def add_all_matrices(sk: SecKey):

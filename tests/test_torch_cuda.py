@@ -439,3 +439,39 @@ def test_thin_recrypt_m1271_through_k3_equals_plain_and_cpu(gpu,
             (h, got.k, got.special) for h, _ in got.parts]
         for (_, a), (_, b) in zip(got.parts, ref.parts):
             assert torch.equal(a.cpu(), b.cpu())
+
+
+BINARY = dict(m=4095, p=2, r=1, bits=500, c=2, mvec=(7, 5, 9, 13))
+
+
+def test_add_two_numbers_m4095_through_k3_equals_cpu(gpu):
+    """The 8-bit add_two_numbers at HElib's binary-arithmetic size m=4095
+    (144 slots of GF(2^12), B = 8192) through K3 and no other kernel:
+    decrypt_number gives a + b in every slot, and each bit of the sum is
+    bit-identical to the port on the host CPU (keys and encryptions are
+    host-seeded, so the same on both)."""
+    from helib_tpu_torch.algos.binary import (add_two_numbers,
+                                              decrypt_number, encrypt_number)
+
+    def add(ctx):
+        sk = SecKey(ctx, seed=151)
+        pk = PubKey(sk)
+        ksstrategy.add_relin_matrix(sk)
+        ea = EncryptedArray(ctx)
+        rng = np.random.default_rng(153)
+        a, b = (rng.integers(0, 256, ea.nslots) for _ in range(2))
+        ca, cb = (encrypt_number(ea, pk, rng, x, 8) for x in (a, b))
+        return add_two_numbers(ea, ca, cb, pk), sk, ea, a + b
+
+    before = (conv_aux_cuda.launches, conv_cuda.launches)
+    got, sk, ea, want = add(Context(**BINARY))
+    torch.cuda.synchronize()
+    assert conv_aux_cuda.launches > before[0]
+    assert conv_cuda.launches == before[1]
+    assert len(got) == 9
+    assert np.array_equal(decrypt_number(ea, sk, got), want)
+    host = add(Context(**BINARY, device="cpu"))[0]
+    for x, y in zip(got, host):
+        assert (x.k, x.special) == (y.k, y.special)
+        for (_, a), (_, b) in zip(x.parts, y.parts):
+            assert torch.equal(a.cpu(), b)
