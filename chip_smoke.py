@@ -123,9 +123,32 @@ Phases, in order; any failure exits non-zero:
      mitigation noise) and bit-identical to the same apply with
      the plain K2 (each plain transform one replay of a CUDA graph of its
      kernels, the diagonals replayed); ms split into host diagonal
-     extraction, encodes and the rest, K2's row at n = 8192, peak memory.
+     extraction, encodes and the rest, K2's row at n = 8192, peak memory;
+ 17. diagnostics, infra and the size above the kernels: (a) HElib's big
+     bootstrapping size m=35113, p=2, bits=600, c=3, mvec=(37, 949)
+     (benchmarks/thinboot_bench.py "big", B = 131072) with SecKey(seed=141,
+     hwt=64): encrypt, mult+relin and an automorphism with its key switch
+     on the staged transforms (ops/ntt.py, as helib_tpu above its kernels'
+     2^16) and no kernel, each decrypted to the host's product, the
+     mult+relin bit-identical to the port on the host CPU at 600 bits (in a
+     second process); setup s, ms per op (host and CUDA events), the ms of
+     one staged transform, peak memory; (b) SecKey.noise_of and
+     debugging.check_noise on phase 10's context and keys, a fresh
+     encryption and a mult+relin, the estimate within 40 bits; (c) the CLI
+     (python -m helib_tpu_torch.cli create-context / key-gen / encrypt /
+     decrypt) at m=4095, bits=500, c=2 as four processes on the card, 144
+     values from default_rng(171) round-tripped, Context.printout; (d)
+     fhe_stats on: one mult+relin on phase 15's context
+     (break-into-digits-ratio, KS-noise-ratio) and four CKKS encodes at
+     m=16384 (CKKS_encode_ratio), each max <= 1; (e) export_helib_binary
+     of phase 15's context, SecKey, PubKey (relinearization matrix alone)
+     and a ciphertext, read back, c0 + c1*s = p*e on the exported rows, the
+     same bytes as the export carried to the host CPU; (f) every step in
+     a timing.timer, printed with print_all_timers beside its CUDA-event
+     ms.
 Each path, each op and the probe run is driven with the launch counts set to
-0 just before it and read just after.  The last three lines are the card's
+0 just before it and read just after; the counts include the staged
+transforms, which phases 1-16 must leave at 0.  The last three lines are the card's
 name and power limit as nvidia-smi prints them, the kernel table as JSON, and
 {"ok": true, "device": {...}}.  Imports nothing of JAX or helib_tpu.
 """
@@ -431,13 +454,32 @@ def _launch_counters() -> dict:
             "p2": probes.p2_cuda}
 
 
+# staged transforms (ops/ntt.py: the sizes above the kernels' 2^16) counted
+# before the last reset_launches(): every phase but 17 must leave it at 0
+_staged_seen = 0
+
+
 def reset_launches():
+    global _staged_seen
+    from helib_tpu_torch.ops import ntt
     for fn in _launch_counters().values():
         fn.launches = 0
+    _staged_seen += ntt.staged_transforms
+    ntt.staged_transforms = 0
 
 
 def read_launches() -> dict:
-    return {name: fn.launches for name, fn in _launch_counters().items()}
+    """Each kernel's launches since the last reset, and `staged`, the
+    staged transforms run instead of a kernel above 2^16."""
+    from helib_tpu_torch.ops import ntt
+    out = {name: fn.launches for name, fn in _launch_counters().items()}
+    out["staged"] = ntt.staged_transforms
+    return out
+
+
+def staged_since_start() -> int:
+    from helib_tpu_torch.ops import ntt
+    return _staged_seen + ntt.staged_transforms
 
 
 def expect_only(launches: dict, name: str, what: str):
@@ -937,7 +979,7 @@ def perop_path(dev, card: str) -> dict:
         "conv_aux_clusters_resident": conv_aux_max_clusters(dev),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
         "card": card}))
-    return row, host_check
+    return row, host_check, (ctx, sk, pk, cts)
 
 
 # ---------------------------------------------------------------------------
@@ -1878,7 +1920,7 @@ def circuits_path(dev, card: str) -> dict:
                       "conv_aux_row_warm_ops": row,
                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
                       "card": card}))
-    return row
+    return row, (ctx, sk, pk, ea)
 
 
 def matmul_ckks_path(dev, card: str) -> dict:
@@ -1985,7 +2027,366 @@ def matmul_ckks_path(dev, card: str) -> dict:
                       "max_abs_err": err, "max_abs_err_raw": raw_err,
                       "error_bound": bound, "plain_rerun_s": plain_s,
                       "ntt_row": row, "peak_mem_gb": peak, "card": card}))
-    return row
+    return row, ctx
+
+
+# ---------------------------------------------------------------------------
+# phase 17: m=35113 on the staged transforms, noise measurement, the CLI,
+# fhe_stats, the binary export, the timers
+# ---------------------------------------------------------------------------
+
+# HElib's big bootstrapping size (benchmarks/thinboot_bench.py "big")
+BIG_BOOT = dict(m=35113, p=2, r=1, bits=600, c=3, mvec=(37, 949))
+BIG_BOOT_SEED, BIG_BOOT_HWT, BIG_BOOT_DATA_SEED = 141, 64, 145
+# the CLI at phase 15's size, as the CLI takes it (no mvec argument)
+CLI_CONTEXT = ("m=4095", "p=2", "r=1", "bits=500", "c=2")
+CLI_DATA_SEED, CLI_VALUES = 171, 144
+NOISE_SLACK_BITS = 40      # tests/test_noise_stats.py's non-vacuity bound
+
+
+class steps:
+    """Each step of phase 17 in a timing.timer (the host's wall clock, as
+    helib_tpu's timers: no synchronize inside) and between two CUDA events
+    (the device time of what it queued); `report` prints both."""
+
+    def __init__(self):
+        self.events: dict = {}
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        from helib_tpu_torch import timing
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        with timing.timer(name):
+            yield
+        b.record()
+        self.events.setdefault(name, []).append((a, b))
+
+    def report(self) -> dict:
+        from helib_tpu_torch import timing
+        torch.cuda.synchronize()
+        print("diag: timing.print_all_timers (host s) and the CUDA-event ms "
+              "of the same steps:")
+        timing.print_all_timers(file=sys.stdout)
+        out = {}
+        for name, evs in self.events.items():
+            count, host_s = timing.get_timer(name)
+            out[name] = {"host_s": host_s, "count": count,
+                         "event_ms": sum(a.elapsed_time(b) for a, b in evs)}
+            print(f"  {name}: CUDA events {out[name]['event_ms']:.3f} ms")
+        return out
+
+
+def _big_boot_host(keys: dict, args: list) -> tuple:
+    """Phase 17a's mult+relin through the port on the host CPU (in an
+    `on_host` process): (its outputs, setup s, mult s)."""
+    from helib_tpu_torch.context import Context
+    from helib_tpu_torch.pipeline import make_mult_relin
+
+    t0 = time.time()
+    ctx = Context(**BIG_BOOT, device="cpu")
+    fn, _ = make_mult_relin(ctx, keys_from_arrays(ctx, keys))
+    t1 = time.time()
+    out = fn(*[torch.from_numpy(a) for a in args])
+    return [t.numpy() for t in out], t1 - t0, time.time() - t1
+
+
+def big_boot_path(dev, step) -> tuple:
+    """Phase 17a: m=35113 (B = 131072) through the staged transforms, no
+    kernel: encrypt, mult+relin and an automorphism with its key switch,
+    each decrypted to the host's product; the mult+relin started on the host
+    CPU in a second process (the function returned waits and checks)."""
+    from helib_tpu_torch.context import Context
+    from helib_tpu_torch.ctxt import Ctxt
+    from helib_tpu_torch.keys import SecKey, PubKey, SKHandle, reduce_mod_phim
+    from helib_tpu_torch.ops import ntt as nttmod
+    from helib_tpu_torch.pipeline import make_mult_relin, make_automorph_relin
+
+    torch.cuda.reset_peak_memory_stats()
+    with step("17a setup (context, keys, 2 matrices)"):
+        t0 = time.time()
+        ctx = Context(**BIG_BOOT, device=dev)
+        sk = SecKey(ctx, seed=BIG_BOOT_SEED, hwt=BIG_BOOT_HWT)
+        pk = PubKey(sk)
+        mfn, _ = make_mult_relin(ctx, sk)
+        rfn, _ = make_automorph_relin(ctx, sk)
+        torch.cuda.synchronize()
+        setup_s = time.time() - t0
+    kexp = ctx.pal.gens[0]
+    print(f"big: {ctx!r}; B = {ctx.ntt_fwd.B}; SecKey(seed={BIG_BOOT_SEED}, "
+          f"hwt={BIG_BOOT_HWT}); setup {setup_s:.1f} s; automorphism "
+          f"X -> X^{kexp}")
+    L = ctx.L
+
+    def ctxt(parts):
+        return Ctxt(ctx, pk, [(SKHandle(0, 1, 0), parts[0]),
+                              (SKHandle(1, 1, 0), parts[1])], L, False, 2,
+                    0.0, 1)
+
+    def check(name, got, want):
+        if not np.array_equal(got, reduce_mod_phim(want % 2, ctx, 2)):
+            raise AssertionError(f"big {name}: decrypt oracle failed")
+
+    rng = np.random.default_rng(BIG_BOOT_DATA_SEED)
+    pts = [rng.integers(0, 2, ctx.phi_m) for _ in range(2)]
+    counts = {}
+
+    def run(name, f):
+        reset_launches()
+        with step(f"17a {name}"):
+            out = f()
+            torch.cuda.synchronize()
+        counts[name] = c = read_launches()
+        if c["staged"] == 0 or any(v for k, v in c.items() if k != "staged"):
+            raise AssertionError(f"big {name}: must run the staged "
+                                 f"transforms and launch no kernel: {c}")
+        return out
+
+    cts = run("encrypt", lambda: [pk.encrypt_bgv(pt, rng) for pt in pts])
+    parts = [[d for _, d in ct.parts] for ct in cts]
+    for ct, pt in zip(cts, pts):
+        check("encrypt", sk.decrypt_bgv(ct), pt)
+    cap = capture(nttmod, "staged_conv")
+    with cap:
+        prod = run("mult+relin", lambda: mfn(*parts[0], *parts[1]))
+    check("mult+relin", sk.decrypt_bgv(ctxt(prod)),
+          np.convolve(pts[0], pts[1]))
+    rot = run("automorph", lambda: rfn(*parts[0]))
+    moved = np.zeros(ctx.m, dtype=np.int64)
+    np.add.at(moved, (np.arange(ctx.phi_m) * kexp) % ctx.m, pts[0])
+    check("automorph", sk.decrypt_bgv(ctxt(rot)), moved)
+    print(f"big: encrypt, mult+relin and automorph decrypt oracles passed; "
+          f"launches per op {json.dumps(counts)}")
+    job = on_host(_big_boot_host, keys_arrays(sk),
+                  [a.cpu().numpy() for a in (*parts[0], *parts[1])])
+    out = [a.cpu().numpy() for a in prod]
+
+    ms = {"mult+relin": host_ms(lambda: (mfn(*parts[0], *parts[1]),
+                                        torch.cuda.synchronize()), 2),
+          "automorph": host_ms(lambda: (rfn(*parts[0]),
+                                       torch.cuda.synchronize()), 2)}
+    ev = {"mult+relin": event_ms(lambda: mfn(*parts[0], *parts[1]), 2, 1),
+          "automorph": event_ms(lambda: rfn(*parts[0]), 2, 1)}
+    x, aux, khat, khat_sh = cap.calls[0]
+    staged_ms = {
+        "conv": event_ms(lambda: nttmod.staged_conv(x, aux, khat, khat_sh),
+                         5, 1),
+        "pow2_fwd": event_ms(lambda: nttmod.ntt_pow2_fwd(x, aux), 5, 1)}
+    reset_launches()          # the timing runs are not the path's count
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"big: ms per op (host) {json.dumps(ms)}, (CUDA events) "
+          f"{json.dumps(ev)}; one staged transform on {list(x.shape)}: "
+          f"convolution {staged_ms['conv']:.3f} ms, power-of-2 forward "
+          f"{staged_ms['pow2_fwd']:.3f} ms; {len(cap.calls)} staged "
+          f"convolutions a mult+relin; peak {peak:.2f} GB")
+
+    def host_check():
+        host, h_setup, h_run = job.result()
+        if not all(np.array_equal(a, b) for a, b in zip(out, host)):
+            raise AssertionError("big mult+relin: GPU != CPU port")
+        print(f"big: mult+relin bit-identical to the port on the host CPU "
+              f"at the full {ctx.bits} bits (setup {h_setup:.1f} s, mult "
+              f"{h_run:.1f} s on {job.threads} threads, in a second process)")
+    return {"setup_s": setup_s, "ms_host": ms, "ms_events": ev,
+            "staged_ms": staged_ms, "staged_shape": list(x.shape),
+            "staged_convs_per_mult": len(cap.calls),
+            "launches_per_op": counts, "peak_mem_gb": peak}, host_check
+
+
+def noise_diag(held, step) -> dict:
+    """Phase 17b: SecKey.noise_of and debugging.check_noise on phase 10's
+    m=32003 context and keys, on a fresh encryption and on a mult+relin."""
+    from helib_tpu_torch import debugging
+
+    ctx, sk, pk, cts = held
+    with step("17b mult+relin"):
+        prod = cts[0].multiply(cts[1], pk)
+    debugging.setup_debug_globals(sk)
+    out = {}
+    try:
+        for name, ct in (("fresh", cts[0]), ("mult+relin", prod)):
+            with step(f"17b noise_of {name}"):
+                t0 = time.time()
+                actual = sk.noise_of(ct)
+                noise_ms = (time.time() - t0) * 1e3
+            if not debugging.check_noise(ct, name):
+                raise AssertionError(f"noise {name}: check_noise failed")
+            if not ct.noise - actual < NOISE_SLACK_BITS:
+                raise AssertionError(f"noise {name}: estimate {ct.noise} "
+                                     f"vacuous over {actual}")
+            out[name] = {"noise_of": actual, "estimate": ct.noise,
+                         "noise_of_host_ms": noise_ms}
+    finally:
+        debugging.setup_debug_globals(None)
+    print(f"noise: m={ctx.m}, bits={ctx.bits}: {json.dumps(out)}; "
+          f"check_noise holds, estimate within {NOISE_SLACK_BITS} bits")
+    return out
+
+
+def cli_diag(dev, step) -> dict:
+    """Phase 17c: the four commands of `python -m helib_tpu_torch.cli` as
+    four processes on the card, in build/cli_smoke/ of the checkout; the
+    decrypted file equals the input; Context.printout of the context."""
+    from helib_tpu_torch import io as tio
+    from helib_tpu_torch.security import context_security
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(root, "build", "cli_smoke")
+    os.makedirs(d, exist_ok=True)
+    f = {k: os.path.join(d, v) for k, v in (
+        ("ctx", "ctx.bin"), ("key", "key"), ("in", "data.txt"),
+        ("ct", "ct.bin"), ("out", "out.txt"))}
+    vals = np.random.default_rng(CLI_DATA_SEED).integers(0, 2, CLI_VALUES)
+    np.savetxt(f["in"], vals, fmt="%d")
+    cmds = [("create-context", *CLI_CONTEXT, f"out={f['ctx']}", "info"),
+            ("key-gen", f"ctx={f['ctx']}", f"out={f['key']}"),
+            ("encrypt", f"ctx={f['ctx']}", f"key={f['key']}.pk",
+             f"in={f['in']}", f"out={f['ct']}"),
+            ("decrypt", f"ctx={f['ctx']}", f"key={f['key']}.sk",
+             f"in={f['ct']}", f"out={f['out']}")]
+    secs = {}
+    for cmd in cmds:
+        with step(f"17c cli {cmd[0]}"):
+            t0 = time.time()
+            done = subprocess.run(
+                [sys.executable, "-m", "helib_tpu_torch.cli", *cmd],
+                cwd=root, capture_output=True, text=True, timeout=300)
+            secs[cmd[0]] = time.time() - t0
+        if done.returncode:
+            raise AssertionError(f"cli {cmd[0]} failed: {done.stderr}")
+        print(f"cli: {cmd[0]} ({secs[cmd[0]]:.1f} s): "
+              f"{done.stdout.strip().splitlines()[-1]}")
+    got = np.loadtxt(f["out"], dtype=np.int64, ndmin=1)
+    if not np.array_equal(got, vals):
+        raise AssertionError("cli: decrypted file != input")
+    with open(f["ctx"], "rb") as fh:
+        ctx = tio.read_context(fh, device=dev)
+    print(f"cli: {CLI_VALUES} values round-tripped on the card; "
+          f"Context.printout:")
+    ctx.printout(sys.stdout)
+    return {"s_per_command": secs, "security": context_security(ctx)}
+
+
+def stats_diag(held15, ctx16, step) -> dict:
+    """Phase 17d: one mult+relin on phase 15's context with fhe_stats on
+    (break-into-digits-ratio and KS-noise-ratio) and four CKKS encodes at
+    phase 16's m=16384 (CKKS_encode_ratio); fhe_stats off again after."""
+    from helib_tpu_torch import timing
+    from helib_tpu_torch.ckks import EncryptedArrayCKKS
+
+    ctx, sk, pk, ea = held15
+    rng = np.random.default_rng(BINARY_DATA_SEED)
+    a, b = (ea.encrypt(list(rng.integers(0, 2, ea.nslots)), pk, rng)
+            for _ in range(2))
+    eac = EncryptedArrayCKKS(ctx16)
+    timing.reset_stats()
+    timing.fhe_stats = True
+    try:
+        with step("17d mult+relin with fhe_stats"):
+            a.multiply(b, pk)
+        with step("17d 4 CKKS encodes with fhe_stats"):
+            for _ in range(4):
+                eac.encode(rng.normal(size=eac.nslots)
+                           + 1j * rng.normal(size=eac.nslots))
+    finally:
+        timing.fhe_stats = False
+    out = {}
+    for name in ("break-into-digits-ratio", "KS-noise-ratio",
+                 "CKKS_encode_ratio"):
+        s = timing._stats.get(name)
+        if s is None or not s.count or not s.max <= 1.0:
+            raise AssertionError(f"stats: {name} {s}")
+        out[name] = {"count": s.count, "max": s.max}
+    timing.reset_stats()
+    print(f"stats: {json.dumps(out)} (each max <= 1); fhe_stats off")
+    return out
+
+
+def export_diag(held15, step) -> dict:
+    """Phase 17e: export_helib_binary of phase 15's context, SecKey, PubKey
+    (its relinearization matrix alone) and one ciphertext; read back with
+    read_binary_dump, HElib's decryption identity c0 + c1*s = p*e on the
+    exported rows, and the same bytes as the export of the same objects
+    carried to the host CPU by convert.py."""
+    from helib_tpu_torch import convert, io_helib_bin
+    from helib_tpu_torch.ctxt import Ctxt
+    from helib_tpu_torch.dcrt import crt_reconstruct
+    from helib_tpu_torch.keys import PubKey
+    from helib_tpu_torch.ops.modops import to_device, to_host
+
+    ctx, sk, pk, ea = held15
+    relin = {(2, 1): pk.matrices[(2, 1)]}
+    pk1 = PubKey.restore(ctx, pk.enc_key, pk.enc_noise, pk.sk_bound, relin)
+    rng = np.random.default_rng(BINARY_DATA_SEED + 1)
+    ct = ea.encrypt(list(rng.integers(0, 2, ea.nslots)), pk1, rng)
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(root, "build", "cli_smoke", "export.bin")
+    with step("17e export_helib_binary"):
+        t0 = time.time()
+        io_helib_bin.export_helib_binary(path, ctx, sk=sk, pk=pk1,
+                                         ctxts=[ct])
+        export_s = time.time() - t0
+    with step("17e read_binary_dump"):
+        d = io_helib_bin.read_binary_dump(path)
+    if ((d.m, d.p, d.r) != (ctx.m, ctx.p, ctx.r) or
+            [k.handle for k in d.ks_matrices] != [(2, 1, 0)] or
+            d.primes != [int(q) for q in ctx.all_q]):
+        raise AssertionError("export: the dump's fields differ")
+    # c0 + c1*s per prime at the exported (primitive-root) columns equals
+    # the card's decryption of pubEncrKey, p*e: even and small
+    res, rows = sk._inner_product_residues(Ctxt(
+        ctx, pk1, list(pk1.enc_key), ctx.L, False, ctx.ptxt_space,
+        pk1.enc_noise, 1))
+    pe = crt_reconstruct(ctx, res, rows)
+    if any(int(v) % ctx.p for v in pe) or max(abs(int(v)) for v in pe) \
+            >= 2 ** 40:
+        raise AssertionError("export: pubEncrKey does not decrypt to p*e")
+    prim = np.array([j for j in range(ctx.m) if math.gcd(j, ctx.m) == 1])
+    ev = to_host(ctx.fwd_ntt(to_device(res, ctx.device), rows))[:, prim]
+    for i, q in enumerate(d.primes[:3]):
+        c0, c1 = (np.array(d.pub_enc_parts[j][2][i], dtype=np.int64)
+                  for j in (0, 1))
+        v = (c0 + c1 * np.array(d.sk_rows[i], dtype=np.int64) % q) % q
+        if not np.array_equal(v, ev[i].astype(np.int64)):
+            raise AssertionError("export: c0 + c1*s != p*e on the rows")
+    # the same export from the host CPU
+    ctx_cpu = convert.context_from_params(convert.context_params(ctx), "cpu")
+    sk_cpu = keys_from_arrays(ctx_cpu, keys_arrays(sk))
+    pk_cpu = PubKey.restore(ctx_cpu, sk_cpu.pubkey.enc_key,
+                            pk.enc_noise, pk.sk_bound,
+                            {(2, 1): sk_cpu.matrices[(2, 1)]})
+    ct_cpu = convert.ctxt_from_arrays(ctx_cpu, pk_cpu,
+                                      **convert.ctxt_arrays(ct))
+    host_path = path + ".host"
+    io_helib_bin.export_helib_binary(host_path, ctx_cpu, sk=sk_cpu,
+                                     pk=pk_cpu, ctxts=[ct_cpu])
+    with open(path, "rb") as f, open(host_path, "rb") as g:
+        blob = f.read()
+        if blob != g.read():
+            raise AssertionError("export: card bytes != host-CPU bytes")
+    print(f"export: {len(blob)} bytes in {export_s:.2f} s; read back, "
+          f"c0 + c1*s = p*e on the exported rows, the same bytes as the "
+          f"host CPU's export")
+    return {"bytes": len(blob), "export_s": export_s}
+
+
+def diag_path(dev, card: str, held10, held15, ctx16) -> None:
+    """Phase 17: a-f in order, the m=35113 host-CPU check collected last."""
+    from helib_tpu_torch import timing
+
+    timing.reset_all_timers()
+    step = steps()
+    big, host_check = big_boot_path(dev, step)
+    noise = noise_diag(held10, step)
+    cli = cli_diag(dev, step)
+    stats = stats_diag(held15, ctx16, step)
+    export = export_diag(held15, step)
+    with step("17a host-CPU check (wait)"):
+        host_check()
+    timers = step.report()
+    print(json.dumps({"metric": "torch_cuda_diag_phase17", "big": big,
+                      "noise": noise, "cli": cli, "stats": stats,
+                      "export": export, "timers": timers, "card": card}))
 
 
 # ---------------------------------------------------------------------------
@@ -2554,7 +2955,7 @@ def main() -> int:
     ckks_big_path(dev, card)
     torch.cuda.empty_cache()
 
-    kernels["conv_aux"], perop_host = perop_path(dev, card)
+    kernels["conv_aux"], perop_host, held10 = perop_path(dev, card)
     torch.cuda.empty_cache()
     kernels["p1"], kernels["p2"] = probe_path(dev, card)
     torch.cuda.empty_cache()
@@ -2571,13 +2972,23 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.time()
-    circuits_path(dev, card)
+    _, held15 = circuits_path(dev, card)
     print(f"chip_smoke: phase 15 took {time.time() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.time()
-    matmul_ckks_path(dev, card)
+    _, ctx16 = matmul_ckks_path(dev, card)
     print(f"chip_smoke: phase 16 took {time.time() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    if staged_since_start():
+        raise AssertionError(f"phases 1-16 ran {staged_since_start()} "
+                             f"staged transforms: a kernel size fell off "
+                             f"its kernel")
+    print("chip_smoke: phases 1-16 ran 0 staged transforms")
+    t0 = time.time()
+    diag_path(dev, card, held10, held15, ctx16)
+    print(f"chip_smoke: phase 17 took {time.time() - t0:.1f} s")
     print(f"chip_smoke: {time.time() - start:.1f} s of command time after "
           f"start-up")
     print(card)

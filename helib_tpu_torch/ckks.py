@@ -81,6 +81,19 @@ class EncryptedArrayCKKS:
         mag = float(np.max(np.abs(z))) if len(s) else 0.0
         # rounding error <= 1/2 per coeff -> canonical bound
         err = self.ctx.noise_uniform(math.log2(0.5))
+        from . import timing
+        if timing.fhe_stats:
+            # noise-model validation: actual decode error of the rounded
+            # encoding vs the bound just charged (reference
+            # HELIB_STATS_UPDATE("CKKS_encode_ratio"), EaCx.cpp:265-277)
+            back = self.decode(rounded, Fraction(scale))[:self.nslots]
+            dist = float(np.max(np.abs(back - z))) if len(z) else 0.0
+            scaled_err = (2.0 ** err) / scale
+            ratio = dist / scaled_err if scaled_err > 0 else 0.0
+            if ratio > 1:
+                from .log import warning
+                warning("CKKS encode: error exceeds bound")
+            timing.stats_update("CKKS_encode_ratio", ratio)
         return rounded, scale, max(mag, 2.0 ** -40), err
 
     def encode_ptxt(self, slots, scale: int | None = None):

@@ -22,7 +22,8 @@ import torch
 from .palgebra import PAlgebra
 from .exceptions import InvalidArgument
 from .nt.primegen import gen_primes, PRIME_BITS
-from .ops.ntt import Pow2NTT, BluesteinTables, aux_tree, bluestein_apply
+from .ops.ntt import (Pow2NTT, BluesteinTables, aux_tree, bluestein_apply,
+                      STAGED_ABOVE, staged_pow2)
 from .ops import modops
 
 
@@ -255,6 +256,9 @@ class Context:
     def _transform(self, x, rows: tuple, inverse: bool):
         t = self.ntt_tree(rows)["inv" if inverse else "fwd"]
         if self.pal.pow2:
+            if x.shape[-1] > STAGED_ABOVE:
+                # no kernel above 2^16, as in helib_tpu (ops/ntt.py)
+                return staged_pow2(x, t, inverse)
             from .ops import ntt_fused
             return ntt_fused.ntt(x, t, inverse)
         tab = self.ntt_inv if inverse else self.ntt_fwd
@@ -265,3 +269,28 @@ class Context:
                 f"r={self.r}, L={self.L}, S={self.S}, c={self.c}, "
                 f"log2Q={self.log2_q(self.L):.1f}, device={self.device}, "
                 f"{self.pal!r})")
+
+    def printout(self, file=None):
+        """Human-readable parameter dump (reference Context::printout,
+        Context.cpp:637); the same text as helib_tpu's."""
+        import sys
+        from .security import context_security
+        f = file or sys.stdout
+        pal = self.pal
+        print(f"m = {self.m}, p = {self.p}, phi(m) = {self.phi_m}", file=f)
+        print(f"  ord(p) = {pal.d}, nslots = {pal.nslots}", file=f)
+        print(f"  gens = {pal.gens}, orders = {pal.orders}, "
+              f"native = {pal.native}", file=f)
+        print(f"  ctxt primes: {self.L} x ~{PRIME_BITS}b "
+              f"(log2 Q = {self.log2_q(self.L):.1f})", file=f)
+        print(f"  special primes: {self.S} (log2 P = "
+              f"{self.log2_special():.1f})", file=f)
+        print(f"  digits: {self.digits}", file=f)
+        print(f"  security ~= {context_security(self):.1f}", file=f)
+
+
+def build_context(m: int, p: int = 2, r: int = 1, bits: int = 300, c: int = 3,
+                  scheme: str = "bgv", **kw) -> Context:
+    """Builder facade (reference ContextBuilder, Context.h:1047-1369); `kw`
+    takes the rest of Context's fields, `device` among them."""
+    return Context(m=m, p=p, r=r, bits=bits, c=c, scheme=scheme, **kw)

@@ -13,6 +13,7 @@ mult_by_p, extract_bits, reduce_ptxt_space) are here too.
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 from fractions import Fraction
 
@@ -137,8 +138,10 @@ class Ctxt:
         BGV mod-switch rounding noise from the scale-down remainder: one
         host transfer and FFT per part, of the first batch element.
         Pipelines pass measure=False, which is what helib_tpu does under a
-        jit trace.  CKKS is never measured, as in helib_tpu; its scale
-        ratFactor is divided by the dropped primes."""
+        jit trace; HELIB_EXACT_MODSWITCH=0 turns it off everywhere (the
+        worst-case bound alone), as in helib_tpu.  CKKS is never measured,
+        as in helib_tpu; its scale ratFactor is divided by the dropped
+        primes."""
         if new_k > self.k:
             raise OutOfRangeError(
                 f"mod_down_to: target level {new_k} above current {self.k}")
@@ -147,7 +150,8 @@ class Ctxt:
         added = self.mod_switch_added_noise()
         drop_bits = self.log2_modulus()
         ps = 1 if self.is_ckks else self.ptxt_space
-        measure = measure and not self.is_ckks
+        measure = (measure and not self.is_ckks
+                   and os.environ.get("HELIB_EXACT_MODSWITCH", "") != "0")
         dropped = set(self.ctx.rows_of(self.k, self.special)) - set(
             self.ctx.rows_of(new_k, new_special))
         new_parts, fracs = [], []

@@ -26,7 +26,7 @@ import torch
 from .context import Context, log2_sum
 from .ops import modops
 from .ops.modops import (add_mod, sub_mod, neg_mod, mul_mod, mul_mod_shoup,
-                         to_device)
+                         to_device, to_host)
 from .exceptions import assert_true
 
 
@@ -95,6 +95,11 @@ def coeffs_to_residues(ctx: Context, coeffs, rows: tuple) -> np.ndarray:
         out[i, :len(arr)] = np.array([int(v) % qi for v in arr],
                                      dtype=np.uint32)
     return out
+
+
+def rt_to_coeff_residues(ctx: Context, a, k: int, special: bool):
+    """Eval tensor -> coefficient-domain residues (on a's device)."""
+    return ctx.inv_ntt(a, ctx.rows_of(k, special))
 
 
 def crt_reconstruct(ctx: Context, coeff_residues: np.ndarray, rows: tuple,
@@ -432,4 +437,20 @@ def rt_break_into_digits(ctx: Context, data, k: int):
                 Dfinv, Dfinv_sh, live_q)
     noise = log2_sum([ctx.noise_uniform(cst["log2_D"] - 1.0)
                       for cst in consts])
+    from . import timing
+    if timing.fhe_stats:
+        # noise-model validation: measured canonical-embedding norm of each
+        # digit vs the bound charged to the noise estimate (reference
+        # HELIB_STATS_UPDATE("break-into-digits-ratio"), DoubleCRT.cpp:548)
+        from .norms import embedding_largest_coeff_log2
+        for dj, cst in zip(digits, consts):
+            res = to_host(rt_to_coeff_residues(ctx, dj, k, True))
+            if res.ndim > 2:          # batched: measure the first element
+                res = res.reshape(-1, *res.shape[-2:])[0]
+            coeffs = crt_reconstruct(ctx, res, all_rows)
+            norm_log2 = embedding_largest_coeff_log2(coeffs, ctx.m,
+                                                     ctx.pal.pow2)
+            bound_log2 = ctx.noise_uniform(cst["log2_D"] - 1.0)
+            timing.stats_update("break-into-digits-ratio",
+                                2.0 ** (norm_log2 - bound_log2))
     return digits, noise

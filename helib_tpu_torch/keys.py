@@ -17,6 +17,7 @@ only the ring arithmetic runs on `ctx.device`.
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -137,6 +138,9 @@ class SecKey:
     def s_full(self):
         return self.skeys[0]["full"]
 
+    def key_bound(self, keyID: int) -> float:
+        return self.skeys[keyID]["bound"]
+
     def key_full(self, keyID: int):
         return self.skeys[keyID]["full"]
 
@@ -239,6 +243,29 @@ class SecKey:
         f = (Q % pr) * ctxt.intFactor % pr
         return (red * inv_mod(f, pr)) % pr
 
+    def noise_of(self, ctxt) -> float:
+        """log2 of the actual canonical-embedding L-infinity norm of <c, s>
+        (reference embeddingLargestCoeff, norms.h:85 -- the quantity the
+        noiseBound estimates track).  Host: one transfer of the inner
+        product's coefficient residues, the CRT and a complex FFT."""
+        ctx = self.ctx
+        coeff_res, rows = self._inner_product_residues(ctxt)
+        from .nt.native import combiner_for
+        comb = combiner_for([int(q) for q in ctx.all_q[np.array(rows)]])
+        if comb is not None:
+            from .norms import embedding_norm_log2_scaled
+            mant, ex = comb.balanced_float_log2(coeff_res)
+            return embedding_norm_log2_scaled(mant, ex, ctx.m, ctx.pal.pow2)
+        vals = dcrt.crt_reconstruct(ctx, coeff_res, rows, balanced=True)
+        return canonical_embedding_norm_log2(vals, ctx)
+
+
+def canonical_embedding_norm_log2(coeffs, ctx) -> float:
+    """max_j |f(zeta^j)| over primitive m-th roots, from balanced integer
+    coefficients (host, complex FFT; reference norms.cpp)."""
+    from .norms import embedding_largest_coeff_log2
+    return embedding_largest_coeff_log2(coeffs, ctx.m, ctx.pal.pow2)
+
 
 def reduce_mod_phim(coeffs: np.ndarray, ctx: Context, modulus: int) -> np.ndarray:
     """Reduce a poly of degree < N mod Phi_m(X) mod `modulus` (host).  For
@@ -329,12 +356,13 @@ def find_ks_matrix(key, handle: SKHandle, to_key: int = 0):
 
 def get_ks_matrix(key, handle: SKHandle, to_key: int = 0) -> KSMatrix:
     """A key-switching matrix for evaluation: present -> returned; absent on
-    a SecKey -> generated on demand with a one-time warning; absent on a
-    PubKey -> LogicError."""
+    a SecKey -> generated on demand with a one-time warning, unless
+    HELIB_STRICT_KS is set (to anything non-empty); absent otherwise ->
+    LogicError."""
     W = find_ks_matrix(key, handle, to_key)
     if W is not None:
         return W
-    if isinstance(key, SecKey):
+    if isinstance(key, SecKey) and not os.environ.get("HELIB_STRICT_KS"):
         from .log import warning
         warning(f"KS matrix for {handle} (to_key={to_key}) missing — "
                 "generating from the secret key on demand", once=True)

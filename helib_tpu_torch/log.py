@@ -1,15 +1,26 @@
-"""Soft-warning channel (helib_tpu.log; role of HElib's log.h Warning())."""
+"""Logger + soft-warning channel (helib_tpu.log; role of HElib's log.h:
+the log file and Warning())."""
 
 from __future__ import annotations
 
 import sys
 
 _warnings_seen: set = set()
+_log_file = sys.stderr
+
+
+def set_log_file(f):
+    global _log_file
+    _log_file = f
+
+
+def helog(msg: str):
+    print(f"[helib_tpu_torch] {msg}", file=_log_file)
 
 
 def warning(msg: str, once: bool = False):
-    """Soft failure path: print to stderr (once per message if `once`)."""
+    """Soft failure path: log a warning (once per message if `once`)."""
     if once and msg in _warnings_seen:
         return
     _warnings_seen.add(msg)
-    print(f"[helib_tpu_torch] WARNING: {msg}", file=sys.stderr)
+    helog(f"WARNING: {msg}")

@@ -85,6 +85,10 @@ def _load():
             ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint32),
             ctypes.c_int64, ctypes.POINTER(ctypes.c_int8),
             ctypes.POINTER(ctypes.c_uint64)]
+        lib.crt_balanced_double.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint32),
+            ctypes.c_int64, ctypes.POINTER(ctypes.c_double),
+            ctypes.POINTER(ctypes.c_int32)]
         _lib = lib
         return _lib
 
@@ -148,6 +152,18 @@ class CrtCombiner:
             v = int.from_bytes(raw[j * stride:(j + 1) * stride], "little")
             out[j] = v if signs[j] >= 0 else -v
         return out
+
+    def balanced_float_log2(self, residues):
+        """(mantissa, exp2) per coefficient: value = mant * 2^exp2."""
+        r = self._res(residues)
+        N = r.shape[1]
+        mant = np.empty(N, dtype=np.float64)
+        ex = np.empty(N, dtype=np.int32)
+        self._lib.crt_balanced_double(
+            self._h, r.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)), N,
+            mant.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            ex.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+        return mant, ex
 
 
 _combiners: dict = {}

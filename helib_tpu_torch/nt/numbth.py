@@ -223,6 +223,16 @@ def inv_mod(a: int, m: int) -> int:
     return pow(a, -1, m)
 
 
+def balanced_mod(a: int, m: int) -> int:
+    """Representative of a mod m in (-m/2, m/2]."""
+    a %= m
+    if a > m // 2 or (m % 2 == 0 and a == m // 2):
+        # HElib's balanced reduction picks (-m/2, m/2]; keep a in (-m/2, m/2]
+        if a > m - a:
+            a -= m
+    return a
+
+
 def crt_combine(residues: list[int], moduli: list[int]) -> int:
     """CRT: value mod prod(moduli) with given residues."""
     q = 1

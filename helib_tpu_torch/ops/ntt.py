@@ -311,6 +311,33 @@ def aux_tree(B: int, device) -> dict:
 
 ROW_MAJOR_B = 16384   # the m=8009 class keeps K1's row-major layout
 
+# Above 2^16 there is no kernel (ops/rows.py MAX_LOG_N), as helib_tpu has no
+# Pallas kernel above MAX_PALLAS_N = 65536 (helib_tpu/ops/pallas_ntt.py:57):
+# a power-of-2 transform of n > 2^16 (Context._transform) and a Bluestein
+# convolution of B > 2^16 (bluestein_apply) run the staged torch transforms
+# on the tensor's own device, as helib_tpu/ops/ntt.py:337-339, 360-362 and
+# 534-537 do.  This is a dispatch by size; the kernel wrappers still refuse
+# n > 2^16.  `staged_transforms` counts these transforms, as each kernel
+# wrapper's `.launches` counts its launches.
+STAGED_ABOVE = 1 << 16
+staged_transforms = 0
+
+
+def staged_pow2(x, t, inverse: bool):
+    """K2's plain version (ntt_fused.ntt_plain) on x [..., P, n], counted."""
+    global staged_transforms
+    from .ntt_fused import ntt_plain
+    staged_transforms += 1
+    return ntt_plain(x, t, inverse)
+
+
+def staged_conv(x, aux, khat, khat_sh):
+    """K1's plain version (conv.conv_plain) on x [..., 3, P, B], counted."""
+    global staged_transforms
+    from .conv import conv_plain
+    staged_transforms += 1
+    return conv_plain(x, aux, khat, khat_sh)
+
 
 def bluestein_apply(x, t, m: int, B: int):
     """Full-m DFT (per table direction) of x: [..., P, m] -> [..., P, m].
@@ -318,15 +345,18 @@ def bluestein_apply(x, t, m: int, B: int):
     The staged form of helib_tpu's bluestein_apply: lift onto the three
     auxiliary primes, convolve each row with its spectral kernel (ops.conv:
     the CUDA kernels on a GPU), CRT back mod q.  B = 16384 lifts row-major,
-    [..., 3, P, B], for K1; every other B aux-major, [3, ..., P, B], for K3,
-    as helib_tpu's default `_aux_shared` dispatch does.  The CRT tail is the
-    same elementwise arithmetic on either layout, so both give the staged
-    reference's residues bit for bit."""
+    [..., 3, P, B], for K1; B > 2^16 row-major too, for the staged
+    convolution (`staged_conv`), as helib_tpu does above its kernels' size;
+    every other B aux-major, [3, ..., P, B], for K3, as helib_tpu's default
+    `_aux_shared` dispatch does.  The CRT tail is the same elementwise
+    arithmetic on either layout, so all give the staged reference's
+    residues bit for bit."""
     from . import conv as convmod
     q = t["q"]
     a = mul_mod_shoup(x, t["u_in"], t["u_in_sh"], q)           # [..., P, m]
-    if B == ROW_MAJOR_B:
-        ax, conv, lead = -3, convmod.conv, ()
+    if B == ROW_MAJOR_B or B > STAGED_ABOVE:
+        ax, lead = -3, ()
+        conv = convmod.conv if B == ROW_MAJOR_B else staged_conv
         a3 = reduce_u32(a.unsqueeze(-3), t["aux_q"])           # [..., 3, P, m]
     else:
         ax, conv, lead = 0, convmod.conv_aux, (1,) * (a.dim() - 2)

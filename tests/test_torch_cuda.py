@@ -1,7 +1,11 @@
 """The port's CUDA kernels (K1 conv, K2 ntt, K3 conv_aux, K4 ntt2, K5
 conv2, the probes P1 and P2) and its BGV and CKKS paths (CKKS at m=1024
 and m=131072), the BGV slot layer and the thin bootstrap at m=1271 on the
-card, against the plain torch versions and the port on the CPU.
+card, against the plain torch versions and the port on the CPU; the sizes
+above the kernels' 2^16 (BGV m=35113, CKKS m=262144) on the staged
+transforms, and the command-line utilities on the card.  The thin
+bootstrap at m=35113 runs for minutes and is marked `cuda_long` as well
+(`-m "not cuda_long"` leaves it out).
 
 Every test needs an NVIDIA GPU and skips without one.  The file imports no
 JAX, so it also runs where only PyTorch is installed (the conftest, which
@@ -475,3 +479,106 @@ def test_add_two_numbers_m4095_through_k3_equals_cpu(gpu):
         assert (x.k, x.special) == (y.k, y.special)
         for (_, a), (_, b) in zip(x.parts, y.parts):
             assert torch.equal(a.cpu(), b)
+
+
+BIG_BOOT = dict(m=35113, p=2, r=1, bits=600, c=3, mvec=(37, 949))
+
+
+def _staged_counts():
+    return (ntt.staged_transforms, conv_aux_cuda.launches,
+            conv_cuda.launches, ntt_fused.ntt_cuda.launches)
+
+
+@pytest.mark.parametrize("which", ["mult", "automorph"])
+def test_m35113_on_staged_transforms_equals_cpu_port(gpu, which):
+    """HElib's big bootstrapping size at small bits (B = 131072, above the
+    kernels): mult+relin and an automorphism with its key switch run the
+    staged transforms and launch no kernel, bit-identical to the port on
+    the CPU."""
+    params = {**BIG_BOOT, "bits": 120}
+    make = make_mult_relin if which == "mult" else make_automorph_relin
+    ctx, ctx_cpu = Context(**params), Context(**params, device="cpu")
+    fn, args = make(ctx, SecKey(ctx, seed=141, hwt=64))
+    fn_cpu, _ = make(ctx_cpu, SecKey(ctx_cpu, seed=141, hwt=64))
+    before = _staged_counts()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    after = _staged_counts()
+    assert after[0] > before[0] and after[1:] == before[1:]
+    want = fn_cpu(*[a.cpu() for a in args])
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g.cpu(), w)
+
+
+def test_ckks_m262144_mult_relin_on_staged_transforms_equals_cpu_port(gpu):
+    """m=262144 (n = 131072, above K2's 4-CTA clusters): every transform
+    staged, no kernel launched, bit-identical to the port on the CPU."""
+    params = dict(m=262144, p=-1, r=30, bits=240, c=3, scheme="ckks")
+    ctx, ctx_cpu = Context(**params), Context(**params, device="cpu")
+    fn, args = make_mult_relin(ctx, SecKey(ctx, seed=2))
+    fn_cpu, _ = make_mult_relin(ctx_cpu, SecKey(ctx_cpu, seed=2))
+    before = _staged_counts()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    after = _staged_counts()
+    assert after[0] - before[0] == 8 and after[1:] == before[1:]
+    want = fn_cpu(*[a.cpu() for a in args])
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g.cpu(), w)
+
+
+def test_cli_round_trip_m4095_on_gpu(gpu, tmp_path, capsys):
+    """create-context / key-gen / encrypt / decrypt on the card (the
+    default device) at m=4095, bits=500, c=2: 144 values back unchanged."""
+    from helib_tpu_torch import cli
+    d = tmp_path
+    cli.main(["create-context", "m=4095", "p=2", "r=1", "bits=500", "c=2",
+              f"out={d / 'ctx.bin'}"])
+    cli.main(["key-gen", f"ctx={d / 'ctx.bin'}", f"out={d / 'key'}"])
+    vals = np.random.default_rng(171).integers(0, 2, 144)
+    np.savetxt(d / "data.txt", vals, fmt="%d")
+    before = conv_aux_cuda.launches
+    cli.main(["encrypt", f"ctx={d / 'ctx.bin'}", f"key={d / 'key.pk'}",
+              f"in={d / 'data.txt'}", f"out={d / 'ct.bin'}"])
+    cli.main(["decrypt", f"ctx={d / 'ctx.bin'}", f"key={d / 'key.sk'}",
+              f"in={d / 'ct.bin'}", f"out={d / 'out.txt'}"])
+    assert conv_aux_cuda.launches > before
+    got = np.loadtxt(d / "out.txt", dtype=np.int64, ndmin=1)
+    np.testing.assert_array_equal(got, vals)
+    assert "encrypted 144 values" in capsys.readouterr().out
+
+
+@pytest.mark.cuda_long
+def test_thin_recrypt_m35113_on_staged_transforms(gpu):
+    """thin_recrypt at HElib's big bootstrapping size (m=35113, mvec=(37,
+    949), bits=600, hwt=64: 864 slots of GF(2^36), B = 131072) on the
+    card: every transform staged, no kernel launched, the result correct
+    and decrypting to its input slots.  Setup and the bootstrap take
+    minutes (PERF.md)."""
+    import time
+    from helib_tpu_torch.recryption import RecryptData, thin_recrypt
+
+    t0 = time.time()
+    ctx = Context(**BIG_BOOT)
+    sk = SecKey(ctx, seed=141, hwt=64)
+    PubKey(sk)
+    ea = EncryptedArray(ctx)
+    rc = RecryptData(ctx, sk, ea, hwt=64)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    rng = np.random.default_rng(143)
+    slots = [int(v) for v in rng.integers(0, 2, ea.nslots)]
+    low = ea.encrypt(slots, sk.pubkey, rng)
+    low.bring_to_k(3)
+    before = _staged_counts()
+    t0 = time.time()
+    out = thin_recrypt(low, rc, sk)
+    torch.cuda.synchronize()
+    boot_s = time.time() - t0
+    after = _staged_counts()
+    print(f"thin bootstrap m=35113: setup {setup_s:.1f} s, cold "
+          f"{boot_s:.1f} s, {after[0] - before[0]} staged transforms, "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GB")
+    assert after[0] > before[0] and after[1:] == before[1:]
+    assert out.is_correct() and out.capacity() > low.capacity() + 30
+    assert np.array_equal(sk.decrypt_bgv(out), ea.encode(slots))
