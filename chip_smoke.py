@@ -145,10 +145,39 @@ Phases, in order; any failure exits non-zero:
      and a ciphertext, read back, c0 + c1*s = p*e on the exported rows, the
      same bytes as the export carried to the host CPU; (f) every step in
      a timing.timer, printed with print_all_timers beside its CUDA-event
-     ms.
-Each path, each op and the probe run is driven with the launch counts set to
-0 just before it and read just after; the counts include the staged
-transforms, which phases 1-16 must leave at 0.  The last three lines are the card's
+     ms;
+ 18. the parallel layer (helib_tpu_torch/parallel), ranks as processes on
+     the card started by parallel.distributed.launch: (a) one NCCL rank
+     runs sharded_mult_relin on a (1, 1) mesh at phase 4's size, its
+     gathered result (one NCCL all_gather) bit-identical to phase 4's, K1
+     alone; then two gloo ranks sharing the card (NCCL refuses two ranks
+     on one device): (b) the same on a (batch=2, limb=1) mesh, the
+     gathered result bit-identical to phase 4's, each rank K1 alone;
+     (c) sharded_mult_relin and sharded_automorph_relin at m=32003,
+     bits=5800, c=3, batch 2 on a (batch=1, limb=2) mesh (97 of the 194
+     ciphertext rows a rank), each rank K3 alone, both results
+     bit-identical to the unsharded port on rank 0 alone; (d) ShardedNTT
+     at n = 65536 (negacyclic) split over the two ranks, its forward equal
+     to K2's and its inverse back to the input, and the m=31775
+     bluestein_apply_sharded (B = 65536) both ways equal to the unsharded
+     K3 path; (e) the dry run's sharded thin bootstrap at m=1271, bits=360,
+     mvec=(31, 41) (SecKey(seed=141, hwt=64), default_rng(143),
+     bring_to_k(3), A = 2): cold with the SecKey, then warm with the
+     PubKey, each decrypting to its slots with capacity restored, no
+     kernel launched, the warm one bit-identical to the unsharded warm
+     one; each op's host and CUDA-event ms, profiled device ms (its own
+     kernels) and launches a rank beside the unsharded ones, the
+     collectives' count, bytes and ms, the sharded transforms and each
+     rank's peak memory;
+ 19. the ten twins of examples/01-10 (helib_tpu_torch/examples) run in
+     this process on the card through importlib, each passing its own
+     assertions; ms and kernel launches per example.
+Phase 18's ranks start and set up while phase 19 runs, then run their
+timed parts.  `--parallel-only` runs the build, phases 3 and 4 and then
+phases 19 and 18 alone.  Each path, each op and the probe run is driven with the launch
+counts set to 0 just before it and read just after; the counts include the
+staged transforms, which phases 1-16 must leave at 0, and the sharded ones,
+which phases 1-17 must leave at 0.  The last three lines are the card's
 name and power limit as nvidia-smi prints them, the kernel table as JSON, and
 {"ok": true, "device": {...}}.  Imports nothing of JAX or helib_tpu.
 """
@@ -454,32 +483,45 @@ def _launch_counters() -> dict:
             "p2": probes.p2_cuda}
 
 
-# staged transforms (ops/ntt.py: the sizes above the kernels' 2^16) counted
-# before the last reset_launches(): every phase but 17 must leave it at 0
-_staged_seen = 0
+# staged transforms (ops/ntt.py: the sizes above the kernels' 2^16) and
+# sharded four-step transforms (parallel/sharded_ntt.py) counted before the
+# last reset_launches(): phases 1-16 must leave both at 0, phase 17 the
+# sharded one
+_staged_seen = _sharded_seen = 0
 
 
 def reset_launches():
-    global _staged_seen
+    global _staged_seen, _sharded_seen
     from helib_tpu_torch.ops import ntt
+    from helib_tpu_torch.parallel import sharded_ntt
     for fn in _launch_counters().values():
         fn.launches = 0
     _staged_seen += ntt.staged_transforms
     ntt.staged_transforms = 0
+    _sharded_seen += sharded_ntt.sharded_transforms
+    sharded_ntt.sharded_transforms = 0
 
 
 def read_launches() -> dict:
-    """Each kernel's launches since the last reset, and `staged`, the
-    staged transforms run instead of a kernel above 2^16."""
+    """Each kernel's launches since the last reset, `staged`, the staged
+    transforms run instead of a kernel above 2^16, and `sharded`, the
+    phi(m)-axis four-step transforms (each direction one)."""
     from helib_tpu_torch.ops import ntt
+    from helib_tpu_torch.parallel import sharded_ntt
     out = {name: fn.launches for name, fn in _launch_counters().items()}
     out["staged"] = ntt.staged_transforms
+    out["sharded"] = sharded_ntt.sharded_transforms
     return out
 
 
 def staged_since_start() -> int:
     from helib_tpu_torch.ops import ntt
     return _staged_seen + ntt.staged_transforms
+
+
+def sharded_since_start() -> int:
+    from helib_tpu_torch.parallel import sharded_ntt
+    return _sharded_seen + sharded_ntt.sharded_transforms
 
 
 def expect_only(launches: dict, name: str, what: str):
@@ -568,7 +610,7 @@ def main_path(dev):
     if not np.array_equal(got, want):
         raise AssertionError("decrypt oracle: product mismatch")
     print(f"main path: decrypt oracle passed ({ctx.phi_m} coefficients)")
-    return fn, args, launches
+    return fn, args, launches, [o.cpu() for o in out]
 
 
 # ---------------------------------------------------------------------------
@@ -2420,15 +2462,11 @@ def timing(fn, args, iters: int = 10) -> dict:
             "ms_per_unbatched_call": out["unbatched"][1]}
 
 
-def profile(fn, args, label: str, top: int = 10, warmup: bool = True):
-    """Device time of one call by kernel name (torch.profiler, the card's
-    activity alone), and the call's wall time: the share of the call the
-    device is busy, after one unprofiled call unless `warmup` is False.
-    The raw kernel events are summed here: key_averages() takes minutes
-    over a bootstrap's ~4e5 launches."""
+def kernel_times(fn, args) -> tuple[list, float]:
+    """One call of fn(*args) under torch.profiler (the card's activity
+    alone): [(kernel name, launches, ms)] longest first, and the call's
+    wall seconds."""
     from torch.profiler import profile as prof, ProfilerActivity
-    if warmup:
-        fn(*args)
     torch.cuda.synchronize()
     with prof(activities=[ProfilerActivity.CUDA]) as p:
         t0 = time.time()
@@ -2443,6 +2481,18 @@ def profile(fn, args, label: str, top: int = 10, warmup: bool = True):
             by_name[e.name()] = (count + 1, ns + e.duration_ns())
     rows = sorted(((k, c, ns / 1e6) for k, (c, ns) in by_name.items()),
                   key=lambda r: -r[2])
+    return rows, wall
+
+
+def profile(fn, args, label: str, top: int = 10, warmup: bool = True):
+    """Device time of one call by kernel name (torch.profiler, the card's
+    activity alone), and the call's wall time: the share of the call the
+    device is busy, after one unprofiled call unless `warmup` is False.
+    The raw kernel events are summed here: key_averages() takes minutes
+    over a bootstrap's ~4e5 launches."""
+    if warmup:
+        fn(*args)
+    rows, wall = kernel_times(fn, args)
     busy = sum(r[2] for r in rows)
     launches = sum(r[1] for r in rows)
     print(f"profile ({label}): one call {wall * 1e3:.3f} ms wall, device "
@@ -2847,6 +2897,466 @@ def beside(fn, args, name: str, label: str, other, card: str) -> dict:
 MODES = {0: "conv", 1: "forward", 2: "inverse"}   # ntt_rows.cuh Mode
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the parallel layer (ranks on the card, started by
+# parallel.distributed.launch)
+# ---------------------------------------------------------------------------
+
+# the gloo ranks share the card (NCCL refuses two ranks on one device), each
+# with its share of the host's threads; their setup runs beside phase 19
+RANKS = 2
+BOOT_SHARDED = dict(m=1271, p=2, r=1, bits=360, c=3, mvec=(31, 41))
+
+
+def rank_op(fn, args) -> tuple:
+    """One counted run of fn(*args) on every rank at once (a barrier
+    first): (outputs, its launches, collectives, host ms and CUDA-event ms,
+    and the blocks its limb gathers returned, for solo_device_ms)."""
+    import torch.distributed as dist
+    from helib_tpu_torch.parallel import distributed as pdist
+    from helib_tpu_torch.parallel.mesh import LimbShard
+    gathered = []
+    orig = LimbShard.gather
+
+    def rec(self, s, e, x):
+        gathered.append(orig(self, s, e, x))
+        return gathered[-1]
+    torch.cuda.synchronize()
+    dist.barrier()
+    reset_launches()
+    pdist.reset_collectives()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with swap(LimbShard, "gather", rec):
+        t0 = time.time()
+        a.record()
+        out = fn(*args)
+        b.record()
+        torch.cuda.synchronize()
+    host = (time.time() - t0) * 1e3
+    return out, {"launches": read_launches(),
+                 "collectives": pdist.read_collectives(), "host_ms": host,
+                 "event_ms": a.elapsed_time(b)}, gathered
+
+
+def solo_device_ms(fn, args, gathered: list) -> float:
+    """This rank's device ms of fn(*args) alone on the card: the ranks take
+    turns (the others wait at a barrier), each profiling its own rows' work
+    with the limb gathers replaying `gathered` (two processes on one card
+    time-slice it, which stretches the kernels each profiles at once)."""
+    import torch.distributed as dist
+    from helib_tpu_torch.parallel.mesh import LimbShard
+    ms = 0.0
+    for r in range(dist.get_world_size()):
+        dist.barrier()
+        if dist.get_rank() == r:
+            it = iter(gathered)
+            with swap(LimbShard, "gather", lambda self, s, e, x: next(it)):
+                rows, _ = kernel_times(fn, args)
+            ms = sum(row[2] for row in rows)
+    dist.barrier()
+    return ms
+
+
+def solo_op(fn, args, warmup: bool = True, profiled: bool = True) -> tuple:
+    """fn(*args) on rank 0 alone, the other ranks waiting at a barrier:
+    (rank 0's outputs or None, its host ms, CUDA-event ms and, if
+    `profiled`, the device ms of a second run), after a warm-up run if
+    `warmup`."""
+    import torch.distributed as dist
+    dist.barrier()
+    out = stats = None
+    if dist.get_rank() == 0:
+        if warmup:
+            fn(*args)
+        torch.cuda.synchronize()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.time()
+        a.record()
+        out = fn(*args)
+        b.record()
+        torch.cuda.synchronize()
+        stats = {"host_ms": (time.time() - t0) * 1e3,
+                 "event_ms": a.elapsed_time(b)}
+        if profiled:
+            rows, _ = kernel_times(fn, args)
+            stats["device_ms"] = sum(r[2] for r in rows)
+    dist.barrier()
+    return out, stats
+
+
+def _profiler_warmup(dev):
+    """The profiler's start-up (seconds, once a process) before the gate."""
+    kernel_times(lambda: torch.ones(1, device=dev).add_(1), ())
+
+
+def _nccl_rank(gate) -> dict:
+    """18a on a one-rank NCCL group: phase 4's size on a (1, 1) mesh; the
+    gather of the result is one NCCL all_gather."""
+    import torch.distributed as dist
+    from helib_tpu_torch.context import Context
+    from helib_tpu_torch.keys import SecKey
+    from helib_tpu_torch.parallel.distributed import rank_device
+    from helib_tpu_torch.parallel.mesh import make_mesh, sharded_mult_relin
+    dev = rank_device("cuda")
+    ctx = Context(m=M, p=P_PLAIN, r=1, bits=BITS, c=C, device=dev)
+    mesh = make_mesh(1)
+    fn, ex = sharded_mult_relin(ctx, SecKey(ctx, seed=SEED), mesh, BATCH)
+    _profiler_warmup(dev)
+    gate.wait()
+    fn(*ex)
+    out, st, got = rank_op(fn, ex)
+    st["device_ms"] = solo_device_ms(fn, ex, got)
+    st["backend"] = dist.get_backend()
+    st["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    return {"out": [mesh.gather(o).cpu() for o in out], "stats": st}
+
+
+def _bgv_batch_rank(dev):
+    """18b: phase 4's size on a (batch=2, limb=1) mesh (L = 13 is odd);
+    returns the run, after the setup."""
+    from helib_tpu_torch.context import Context
+    from helib_tpu_torch.keys import SecKey
+    from helib_tpu_torch.parallel.mesh import make_mesh, sharded_mult_relin
+    ctx = Context(m=M, p=P_PLAIN, r=1, bits=BITS, c=C, device=dev)
+    mesh = make_mesh(RANKS, batch_axis=RANKS)
+    fn, ex = sharded_mult_relin(ctx, SecKey(ctx, seed=SEED), mesh, BATCH)
+
+    def run():
+        fn(*ex)
+        out, st, got = rank_op(fn, ex)
+        expect_only(st["launches"], "conv", "phase 18b")
+        st["device_ms"] = solo_device_ms(fn, ex, got)
+        out = [mesh.gather(o) for o in out]
+        return {"out": [o.cpu() for o in out] if mesh.coords == (0, 0)
+                else None, "stats": st, "shape": tuple(ex[0].shape)}
+    return run
+
+
+def _big_limb_rank(dev):
+    """18c: m=32003, bits=5800 on a (batch=1, limb=2) mesh, batch 2: the
+    sharded mult+relin and rotate through K3 alone, gathered and held to
+    the unsharded port run on rank 0 alone; returns the run."""
+    from helib_tpu_torch.context import Context
+    from helib_tpu_torch.keys import SecKey
+    from helib_tpu_torch.parallel.mesh import (make_mesh, sharded_mult_relin,
+                                               sharded_automorph_relin)
+    from helib_tpu_torch.pipeline import (make_batched_mult_relin,
+                                          make_automorph_relin)
+    t0 = time.time()
+    ctx = Context(**BIG, device=dev)
+    sk = SecKey(ctx, seed=BIG_SEED)
+    mesh = make_mesh(RANKS, batch_axis=1)
+    ops = [("mult", *sharded_mult_relin(ctx, sk, mesh, 2)),
+           ("rotate", *sharded_automorph_relin(ctx, sk, mesh, 2))]
+    afn, aex = make_automorph_relin(ctx, sk)
+    plain = {"mult": make_batched_mult_relin(ctx, sk, 2),
+             "rotate": (afn, tuple(e.unsqueeze(0).expand((2,) + e.shape)
+                                   for e in aex))}
+    res = {"setup_s": time.time() - t0, "rows": len(mesh.rows(ctx.L)),
+           "L": ctx.L, "S": ctx.S, "shape": tuple(ops[0][2][0].shape)}
+
+    def run():
+        for name, fn, ex in ops:
+            fn(*ex)
+            out, st, got = rank_op(fn, ex)
+            expect_only(st["launches"], "conv_aux", f"phase 18c {name}")
+            st["device_ms"] = solo_device_ms(fn, ex, got)
+            res[name] = st
+            out = [mesh.gather(o) for o in out]
+            # the unsharded port on the same inputs, on rank 0 alone
+            want, res[name + "_unsharded"] = solo_op(*plain[name])
+            if want is not None and not all(torch.equal(g, w)
+                                            for g, w in zip(out, want)):
+                raise AssertionError(f"phase 18c {name}: sharded != "
+                                     f"unsharded")
+        return res
+    return run
+
+
+def _four_step_rank(dev):
+    """18d: ShardedNTT at n = 65536 (negacyclic) against K2 both ways, and
+    the m=31775 bluestein_apply_sharded (B = 65536) against the unsharded
+    K3 path, both directions, A = 2 over the two ranks; returns the run."""
+    import torch.distributed as dist
+    from helib_tpu_torch.nt.primegen import gen_primes
+    from helib_tpu_torch.ops import ntt_fused
+    from helib_tpu_torch.ops.modops import to_device
+    from helib_tpu_torch.ops.ntt import (BluesteinTables, aux_tree,
+                                         aux_primes, bluestein_apply)
+    from helib_tpu_torch.parallel.sharded_ntt import (ShardedNTT,
+                                                      bluestein_apply_sharded)
+    group = dist.group.WORLD
+    n, m = 65536, 31775
+    x, t = ntt_inputs(n, 2, (), 181, dev)
+    s = ShardedNTT(np.array(gen_primes(2 * n, 2), dtype=np.uint32), n,
+                   negacyclic=True, A=RANKS, device=dev).set_group(group)
+    lo, hi = s.span()
+    qs = np.array(gen_primes(2 * m, 2), dtype=np.uint32)
+    sntt = ShardedNTT(aux_primes(), 65536, negacyclic=False, A=RANKS,
+                      device=dev).set_group(group)
+    rng = np.random.default_rng(183)
+    xb = to_device(rng.integers(0, qs[:, None].astype(np.int64),
+                                (len(qs), m)).astype(np.uint32), dev)
+    trees = {}
+    for inverse in (False, True):
+        bt = BluesteinTables(qs, m, inverse, dev)
+        trees[inverse] = (bt.tree(dev, range(len(qs)), aux_tree(bt.B, dev)),
+                          bt.B)
+
+    def run():
+        res = {}
+        y, res["ntt_fwd"], _ = rank_op(lambda v: s.gather(s.fwd(v)),
+                                       (x[..., lo:hi].contiguous(),))
+        if not torch.equal(y, ntt_fused.ntt(x, t, False)):
+            raise AssertionError("phase 18d: ShardedNTT fwd != K2's forward")
+        back, res["ntt_inv"], _ = rank_op(lambda v: s.gather(s.inv(v)),
+                                          (y[..., lo:hi].contiguous(),))
+        if not torch.equal(back, x):
+            raise AssertionError("phase 18d: ShardedNTT inv is not the "
+                                 "inverse")
+        _, res["ntt_k2"] = solo_op(lambda v: ntt_fused.ntt(v, t, False),
+                                   (x,), profiled=False)
+        for inverse, (tb, B) in trees.items():
+            tag = "bluestein_" + ("inv" if inverse else "fwd")
+            got, res[tag], _ = rank_op(
+                lambda v: bluestein_apply_sharded(v, tb, m, B, sntt), (xb,))
+            reset_launches()
+            want = bluestein_apply(xb, tb, m, B)
+            if read_launches()["conv_aux"] != 1 or not torch.equal(got, want):
+                raise AssertionError(f"phase 18d: sharded {tag} != the "
+                                     f"unsharded K3 path")
+            _, res[tag + "_k3"] = solo_op(
+                lambda v: bluestein_apply(v, tb, m, B), (xb,), profiled=False)
+        return res
+    return run
+
+
+def _boot_rank(dev):
+    """18e: the dry run's thin bootstrap at m=1271 (A = 2) on the sharded
+    transforms, with the PubKey after one unsharded cold run with the
+    SecKey has minted the matrices (in the setup); it decrypts to its slots
+    with capacity restored, launches no kernel and equals the unsharded
+    warm run on rank 0 alone; returns the run."""
+    import torch.distributed as dist
+    from helib_tpu_torch.context import Context
+    from helib_tpu_torch.keys import SecKey, PubKey
+    from helib_tpu_torch.ea import EncryptedArray
+    from helib_tpu_torch.recryption import RecryptData, thin_recrypt
+    t0 = time.time()
+    ctx = Context(**BOOT_SHARDED, device=dev)
+    sk = SecKey(ctx, seed=141, hwt=64)
+    pk = PubKey(sk)
+    ea = EncryptedArray(ctx)
+    rc = RecryptData(ctx, sk, ea, hwt=64)
+    rng = np.random.default_rng(143)
+    slots = [int(v) for v in rng.integers(0, 2, ea.nslots)]
+    ct = ea.encrypt(slots, pk, rng)
+    ct.bring_to_k(3)                       # capacity nearly spent
+    res = {"setup_s": time.time() - t0}
+
+    def check(out, what):
+        if [int(v) for v in ea.decrypt_ints(out, sk)] != slots:
+            raise AssertionError(f"phase 18e {what}: wrong decrypt")
+        if out.capacity() <= ct.capacity():
+            raise AssertionError(f"phase 18e {what}: capacity not restored")
+        return out.capacity()
+
+    t0 = time.time()
+    check(thin_recrypt(ct, rc, sk), "cold")
+    torch.cuda.synchronize()
+    res["cold_unsharded_s"] = time.time() - t0
+
+    def run():
+        ctx.enable_sharded_transforms(RANKS, dist.group.WORLD)
+        warm, st, _ = rank_op(lambda c: thin_recrypt(c, rc, pk), (ct,))
+        ctx.disable_sharded_transforms()
+        if st["launches"]["sharded"] == 0 or any(
+                v for k, v in st["launches"].items() if k != "sharded"):
+            raise AssertionError(f"phase 18e: launched {st['launches']}")
+        res["warm"] = st
+        res["capacity"] = (ct.capacity(), check(warm, "warm"))
+        ref, res["warm_unsharded"] = solo_op(
+            lambda c: thin_recrypt(c, rc, pk), (ct,), warmup=False,
+            profiled=False)
+        if ref is not None:
+            same_parts(warm, ref, "phase 18e warm sharded vs unsharded")
+        return res
+    return run
+
+
+def _gloo_ranks(gate) -> dict:
+    """Phases 18b-e on one rank of the gloo group sharing the card: every
+    setup, then the runs once the gate opens."""
+    from helib_tpu_torch.parallel.distributed import rank_device
+    torch.set_num_threads(max(1, (os.cpu_count() or RANKS) // RANKS))
+    dev = rank_device("cuda")
+    t0 = time.time()
+    runs = [(tag, fn(dev)) for tag, fn in (
+        ("b", _bgv_batch_rank), ("c", _big_limb_rank),
+        ("d", _four_step_rank), ("e", _boot_rank))]
+    _profiler_warmup(dev)
+    res = {"setup_s": time.time() - t0}
+    gate.wait()
+    for tag, run in runs:
+        t0 = time.time()
+        res[tag] = run()
+        res[tag + "_s"] = time.time() - t0
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    return res
+
+
+def _short(st: dict) -> dict:
+    """A rank_op record for printing: nonzero launches only."""
+    return {**st, "launches": {k: v for k, v in st["launches"].items() if v}}
+
+
+class parallel_ranks:
+    """Phase 18's ranks, started now: a one-rank NCCL group (18a) and two
+    gloo ranks (18b-e) set up while this process goes on, each waiting at
+    its gate; `.run(phase4)` opens the gates in turn, checks and prints."""
+
+    def __init__(self):
+        import concurrent.futures as cf
+        from helib_tpu_torch.parallel.distributed import launch
+        mp = torch.multiprocessing.get_context("spawn")
+        self.t0 = time.time()
+        self.gates = mp.Event(), mp.Event()
+        self.pool = cf.ThreadPoolExecutor(2)
+        self.a = self.pool.submit(launch, _nccl_rank, 1, self.gates[0])
+        self.be = self.pool.submit(launch, _gloo_ranks, RANKS, self.gates[1],
+                                   backend="gloo")
+
+    def run(self, phase4: list) -> None:
+        try:
+            self._run(phase4)
+        finally:
+            for g in self.gates:
+                g.set()
+            self.pool.shutdown()
+
+    def _run(self, phase4: list) -> None:
+        print(f"parallel: ranks started {time.time() - self.t0:.1f} s ago")
+        t0 = time.time()
+        self.gates[0].set()
+        (a,) = self.a.result()
+        if a["stats"]["backend"] != "nccl":
+            raise AssertionError(f"phase 18a ran on {a['stats']['backend']}")
+        expect_only(a["stats"]["launches"], "conv", "phase 18a")
+        for got, want in zip(a["out"], phase4):
+            if not torch.equal(got, want):
+                raise AssertionError("phase 18a: != phase 4's output")
+        print(f"parallel 18a: one NCCL rank, (1, 1) mesh, m={M} batch "
+              f"{BATCH}: bit-identical to phase 4 "
+              f"({time.time() - t0:.1f} s after its gate); "
+              f"{json.dumps(_short(a['stats']))}")
+        t0 = time.time()
+        self.gates[1].set()
+        ranks = self.be.result()
+        print(f"parallel 18b-e: {time.time() - t0:.1f} s after the gate "
+              f"(setup before it: " + ", ".join(
+                  f"rank {r} {res['setup_s']:.1f} s"
+                  for r, res in enumerate(ranks)) + ")")
+        for got, want in zip(ranks[0]["b"]["out"], phase4):
+            if not torch.equal(got, want):
+                raise AssertionError("phase 18b: != phase 4's output")
+        for r, res in enumerate(ranks):
+            print(f"parallel 18b rank {r}: (2, 1) mesh, shard "
+                  f"{res['b']['shape']}, {res['b_s']:.1f} s: "
+                  f"{json.dumps(_short(res['b']['stats']))}")
+        print("parallel 18b: gathered result bit-identical to phase 4")
+        c0 = ranks[0]["c"]
+        for r, res in enumerate(ranks):
+            c = res["c"]
+            print(f"parallel 18c rank {r}: (1, 2) mesh, {c['rows']} of "
+                  f"{c['L']} rows + {c['S']} special, shard {c['shape']}, "
+                  f"setup {c['setup_s']:.1f} s, {res['c_s']:.1f} s")
+            for op in ("mult", "rotate"):
+                st = c[op]
+                print(f"parallel 18c rank {r} {op}: {json.dumps(_short(st))}"
+                      f"; device ms / unsharded {st['device_ms'] / c0[op + '_unsharded']['device_ms']:.3f}")
+        for op in ("mult", "rotate"):
+            print(f"parallel 18c {op} unsharded (rank 0 alone): "
+                  f"{json.dumps(c0[op + '_unsharded'])}; bit-identical")
+        for r, res in enumerate(ranks):
+            d = res["d"]
+            for tag in ("ntt_fwd", "ntt_inv", "bluestein_fwd",
+                        "bluestein_inv"):
+                print(f"parallel 18d rank {r} {tag}: "
+                      f"{json.dumps(_short(d[tag]))}")
+        d0 = ranks[0]["d"]
+        print(f"parallel 18d unsharded (rank 0 alone): K2 n = 65536 "
+              f"{json.dumps(d0['ntt_k2'])}; K3 m=31775 fwd "
+              f"{json.dumps(d0['bluestein_fwd_k3'])}, inv "
+              f"{json.dumps(d0['bluestein_inv_k3'])}")
+        print("parallel 18d: ShardedNTT == K2 forward, inverse == input; "
+              "sharded Bluestein == K3 path, both directions")
+        for r, res in enumerate(ranks):
+            e = res["e"]
+            print(f"parallel 18e rank {r}: setup {e['setup_s']:.1f} s, "
+                  f"unsharded cold run (minting) {e['cold_unsharded_s']:.1f} "
+                  f"s, capacity {e['capacity'][0]:.1f} -> "
+                  f"{e['capacity'][1]:.1f}, {res['e_s']:.1f} s; warm "
+                  f"sharded {json.dumps(_short(e['warm']))}")
+        print(f"parallel 18e warm unsharded (rank 0 alone): "
+              f"{json.dumps(ranks[0]['e']['warm_unsharded'])}")
+        print("parallel 18e: the sharded thin bootstrap decrypts to its "
+              "slots, capacity restored, == the unsharded warm run")
+        for r, res in enumerate(ranks):
+            print(f"parallel: rank {r} peak {res['peak_gb']:.2f} GB")
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the twins of examples/01-10
+# ---------------------------------------------------------------------------
+
+def examples_path(card: str) -> None:
+    """Each twin in helib_tpu_torch/examples/ loaded through importlib and
+    run in this process on the card, its own assertions the check; ms and
+    kernel launches per example."""
+    import importlib.util
+    import io
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "helib_tpu_torch", "examples")
+    rows = {}
+    for name in sorted(f[:-3] for f in os.listdir(here) if f.endswith(".py")):
+        spec = importlib.util.spec_from_file_location(
+            f"twin_{name}", os.path.join(here, name + ".py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        reset_launches()
+        t0 = time.time()
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            mod.main(device="cuda")
+        torch.cuda.synchronize()
+        ms = (time.time() - t0) * 1e3
+        launches = {k: v for k, v in read_launches().items() if v}
+        last = text.getvalue().strip().splitlines()[-1]
+        rows[name] = {"ms": ms, "launches": launches}
+        print(f"examples: {name} passed in {ms:.0f} ms, {launches}; "
+              f"last line: {last}")
+    print(json.dumps({"metric": "torch_cuda_examples_ms", "examples": rows,
+                      "card": card}))
+
+
+def parallel_and_examples(card: str, phase4: list, start: float) -> None:
+    """Phases 18 and 19: phase 18's ranks start and set up while phase 19
+    runs here, then run their timed parts one group at a time."""
+    t0 = time.time()
+    ranks = parallel_ranks()
+    try:
+        examples_path(card)
+        print(f"chip_smoke: phase 19 took {time.time() - t0:.1f} s (phase "
+              f"18's ranks setting up beside it)")
+    finally:
+        # phase 18 runs even if phase 19 failed: its ranks wait at the gates
+        t0 = time.time()
+        ranks.run(phase4)
+    print(f"chip_smoke: phase 18 took {time.time() - t0:.1f} s after phase "
+          f"19")
+    print(f"chip_smoke: {time.time() - start:.1f} s of command time after "
+          f"start-up")
+
+
 def ptxas_summary(log: str) -> list:
     """One line per kernel of nvcc's -Xptxas -v report: name and template
     arguments, registers, stack frame and spills."""
@@ -2880,7 +3390,13 @@ def ptxas_summary(log: str) -> list:
             for e in out]
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parallel-only", action="store_true",
+                    help="build, phase 4 (its output is 18a-b's reference), "
+                         "then phases 18 and 19 alone")
+    only = ap.parse_args(argv).parallel_only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2920,7 +3436,15 @@ def main() -> int:
           f"{rows} rows (n = 8 .. 32768, P = 5 and 20, every k, "
           f"max |err| = {err})")
 
-    fn, args, launches = main_path(dev)
+    fn, args, launches, phase4 = main_path(dev)
+    if only:
+        del fn, args
+        parallel_and_examples(card, phase4, start)
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     kernels = {"conv": measure(
         fn, args, launches, "conv",
         "torch_cuda_mult_relin_ops_per_s_m8009_b380_batch16", "bgv", card)}
@@ -2989,8 +3513,14 @@ def main() -> int:
     t0 = time.time()
     diag_path(dev, card, held10, held15, ctx16)
     print(f"chip_smoke: phase 17 took {time.time() - t0:.1f} s")
-    print(f"chip_smoke: {time.time() - start:.1f} s of command time after "
-          f"start-up")
+    del held10, held15, ctx16
+    gc.collect()
+    torch.cuda.empty_cache()
+    if sharded_since_start():
+        raise AssertionError(f"phases 1-17 ran {sharded_since_start()} "
+                             f"sharded transforms")
+    print("chip_smoke: phases 1-17 ran 0 sharded transforms")
+    parallel_and_examples(card, phase4, start)
     print(card)
     order = ("conv", "ntt", "conv_aux", "ntt2", "conv2", "p1", "p2")
     print(json.dumps({"kernels": [kernels[k] for k in order]}))

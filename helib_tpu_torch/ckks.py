@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import hashlib
 import math
+import sys
 from fractions import Fraction
 
 import numpy as np
@@ -29,6 +30,19 @@ from . import dcrt
 from .dcrt import rt_mul, rt_add, sample_small, sample_gaussian, \
     small_coeffs_to_rt
 from .nt.numbth import inv_mod
+
+
+def _decimal(f) -> str:
+    """str(f) of a Fraction or int, past Python's 4300-digit limit on
+    int-to-str conversion: the scale of a deep squaring ladder reaches it
+    (examples/04_ckks_depth.py at level 10), where helib_tpu's
+    str(ratFactor) raises; below it, the same text."""
+    limit = sys.get_int_max_str_digits()
+    sys.set_int_max_str_digits(0)
+    try:
+        return str(f)
+    finally:
+        sys.set_int_max_str_digits(limit)
 
 
 class EncryptedArrayCKKS:
@@ -169,7 +183,7 @@ class EncryptedArrayCKKS:
         h = hashlib.sha256()
         h.update(np.asarray(sk.s_coeffs).tobytes())
         h.update(np.ascontiguousarray(coeff_res).tobytes())
-        h.update(str(ctxt.ratFactor).encode())
+        h.update(_decimal(ctxt.ratFactor).encode())
         prg = np.random.default_rng(
             np.frombuffer(h.digest(), dtype=np.uint64))
         g = prg.normal(0.0, 1.0, self.N)

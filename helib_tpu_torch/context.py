@@ -22,8 +22,8 @@ import torch
 from .palgebra import PAlgebra
 from .exceptions import InvalidArgument
 from .nt.primegen import gen_primes, PRIME_BITS
-from .ops.ntt import (Pow2NTT, BluesteinTables, aux_tree, bluestein_apply,
-                      STAGED_ABOVE, staged_pow2)
+from .ops.ntt import (Pow2NTT, BluesteinTables, aux_tree, aux_primes,
+                      bluestein_apply, STAGED_ABOVE, staged_pow2)
 from .ops import modops
 
 
@@ -166,9 +166,11 @@ class Context:
             v *= int(q)
         return v
 
-    def primes_of(self, k: int, special: bool) -> np.ndarray:
-        """Primes of a (prefix-k, specials?) prime set, in data-row order."""
-        return np.concatenate([self.qs[:k], self.sp]) if special else self.qs[:k]
+    def primes_of(self, k: int, special: bool, own=None) -> np.ndarray:
+        """Primes of a (prefix-k, specials?) prime set, in data-row order;
+        `own` (ctxt rows, see rows_of) keeps only those ctxt rows."""
+        return self.all_q[np.array(self.rows_of(k, special, own),
+                                   dtype=np.int64)]
 
     def digit_ranges(self, k: int) -> list[tuple[int, int]]:
         """Digit partition restricted to the live prefix [0, k)."""
@@ -212,14 +214,15 @@ class Context:
         return s
 
     # -- device constant tables -------------------------------------------
-    def dev_q(self, k: int, special: bool):
-        """(q, Barrett mu) of the prime set as [P, 1] int32 device tensors."""
+    def dev_q(self, k: int, special: bool, own=None):
+        """(q, Barrett mu) of the prime set as [P, 1] int32 device tensors
+        (`own`: as in rows_of)."""
         def build():
-            qs = self.primes_of(k, special)
+            qs = self.primes_of(k, special, own)
             return (modops.to_device(qs[:, None], self.device),
                     modops.to_device(modops.barrett_mu(qs)[:, None],
                                      self.device))
-        return self.cached(("q", k, special), build)
+        return self.cached(("q", k, special, own), build)
 
     def ntt_tree(self, rows: tuple) -> dict:
         """Device transform tables restricted to the given prime rows
@@ -240,8 +243,12 @@ class Context:
                     "inv": self.ntt_inv.tree(self.device, rows, aux)}
         return self.cached(("ntt", tuple(rows)), build)
 
-    def rows_of(self, k: int, special: bool) -> tuple:
-        rows = list(range(k))
+    def rows_of(self, k: int, special: bool, own=None) -> tuple:
+        """Rows (indices into all_q) of the prime set (k, special): the
+        ctxt prefix [0, k), then the special primes.  `own`, a tuple of ctxt
+        rows below k, replaces the prefix: the rows one rank of a limb mesh
+        holds (parallel/mesh.py), the specials replicated on every rank."""
+        rows = list(range(k)) if own is None else list(own)
         if special:
             rows += list(range(self.L, self.L + self.S))
         return tuple(rows)
@@ -253,6 +260,25 @@ class Context:
     def inv_ntt(self, evals, rows: tuple):
         return self._transform(evals, rows, inverse=True)
 
+    def enable_sharded_transforms(self, A: int, group=None):
+        """Route every odd-m transform through the phi(m)-axis-sharded
+        four-step Bluestein pipeline (parallel/sharded_ntt.py): the B-point
+        convolutions' block axis split A ways over `group` (a
+        torch.distributed group whose size divides A; None keeps all A
+        blocks here), one exchange per convolution direction and one gather
+        that leaves the result replicated for the ring ops around it, which
+        every rank runs on the whole ciphertext.  Call after setup and
+        keygen; the power-of-2 branch is unchanged, as in helib_tpu."""
+        from .parallel.sharded_ntt import ShardedNTT
+        sntt = ShardedNTT(aux_primes(), self.ntt_fwd.B, negacyclic=False,
+                          A=A, device=self.device)
+        if group is not None:
+            sntt.set_group(group)
+        self._sharded_ntt = sntt
+
+    def disable_sharded_transforms(self):
+        self._sharded_ntt = None
+
     def _transform(self, x, rows: tuple, inverse: bool):
         t = self.ntt_tree(rows)["inv" if inverse else "fwd"]
         if self.pal.pow2:
@@ -262,6 +288,10 @@ class Context:
             from .ops import ntt_fused
             return ntt_fused.ntt(x, t, inverse)
         tab = self.ntt_inv if inverse else self.ntt_fwd
+        sntt = getattr(self, "_sharded_ntt", None)
+        if sntt is not None:
+            from .parallel.sharded_ntt import bluestein_apply_sharded
+            return bluestein_apply_sharded(x, t, self.m, tab.B, sntt)
         return bluestein_apply(x, t, self.m, tab.B)
 
     def __repr__(self):

@@ -46,12 +46,13 @@ def ks_stacked_W(W: KSMatrix, rows: tuple):
     return ent
 
 
-def ks_digit_mac(ctx: Context, digits, W: KSMatrix, k: int):
+def ks_digit_mac(ctx: Context, digits, W: KSMatrix, k: int, own=None):
     """sum_j digit_j * (b_j, a_j) as two stacked modular multiplies and a
-    fold over the digit axis (the KS MAC hot loop)."""
+    fold over the digit axis (the KS MAC hot loop); `own` (ctxt rows, as in
+    Context.rows_of): the digits hold only those rows and the specials."""
     nd = len(digits)
-    Wb, Wa = ks_stacked_W(W, ctx.rows_of(k, True))
-    q, mu = ctx.dev_q(k, True)
+    Wb, Wa = ks_stacked_W(W, ctx.rows_of(k, True, own))
+    q, mu = ctx.dev_q(k, True, own)
     D = torch.stack(digits, dim=-3)            # [..., nd, R, N]
     pb = mul_mod(D, Wb[:nd], q, mu)
     pa = mul_mod(D, Wa[:nd], q, mu)
@@ -83,12 +84,22 @@ class Ctxt:
     intFactor: int = 1
     ratFactor: object = 1       # CKKS scale (exact Fraction/int)
     ptxtMag: float = 1.0        # CKKS bound on |plaintext| (linear)
+    # None, or the limb shard of one rank of a ("batch", "limb") mesh
+    # (parallel/mesh.py LimbShard): the parts hold only the ctxt rows
+    # `shard.own` and the specials.  tensor, relinearize, automorph and
+    # drop_special_primes run on it; other ops expect every row.
+    shard: object = None
 
     # ------------------------------------------------------------------ utils
     def copy(self) -> "Ctxt":
         return Ctxt(self.ctx, self.pubkey, list(self.parts), self.k,
                     self.special, self.ptxt_space, self.noise, self.intFactor,
-                    self.ratFactor, self.ptxtMag)
+                    self.ratFactor, self.ptxtMag, self.shard)
+
+    @property
+    def own(self):
+        """The ctxt rows the parts hold (None: all k)."""
+        return None if self.shard is None else self.shard.own
 
     @property
     def is_ckks(self) -> bool:
@@ -157,7 +168,8 @@ class Ctxt:
         new_parts, fracs = [], []
         for h, data in self.parts:
             out = rt_scale_down(self.ctx, data, self.k, self.special, new_k,
-                                new_special, ps, want_frac=measure)
+                                new_special, ps, want_frac=measure,
+                                own=self.own)
             if measure:
                 out, frac = out
                 fracs.append((h, frac))
@@ -356,14 +368,14 @@ class Ctxt:
         if (self.k, self.special) != (other.k, other.special):
             raise LogicError("tensor: operands on different prime sets; "
                              "bring_to_k first")
-        k, sp = self.k, self.special
+        k, sp, own = self.k, self.special, self.own
         pr = math.gcd(self.ptxt_space, other.ptxt_space)
         out_parts: list = []
 
         def add_part(h, d):
             for i, (h2, d2) in enumerate(out_parts):
                 if h2 == h:
-                    out_parts[i] = (h2, rt_add(ctx, d2, d, k, sp))
+                    out_parts[i] = (h2, rt_add(ctx, d2, d, k, sp, own))
                     return
             out_parts.append((h, d))
 
@@ -372,7 +384,7 @@ class Ctxt:
                 h = h1.mul(h2)
                 if h is None:
                     raise LogicError("incompatible part handles in tensor")
-                add_part(h, rt_mul(ctx, d1, d2, k, sp))
+                add_part(h, rt_mul(ctx, d1, d2, k, sp, own))
         intF = 1
         if self.is_ckks:
             f1, f2 = Fraction(self.ratFactor), Fraction(other.ratFactor)
@@ -392,7 +404,7 @@ class Ctxt:
             intF = self.intFactor * other.intFactor % pr
             intF = intF * (Q % pr) % pr
         return Ctxt(ctx, self.pubkey, out_parts, k, sp, pr,
-                    self.noise + other.noise, intF)
+                    self.noise + other.noise, intF, shard=self.shard)
 
     def mul_low_level(self, other: "Ctxt") -> "Ctxt":
         """multLowLvl: equalize the prime sets near the natural level and
@@ -426,23 +438,24 @@ class Ctxt:
         if all(h.is_one or h.is_base(to_key) for h, _ in self.parts):
             return self
         self.drop_special_primes()
-        k = self.k
+        k, own = self.k, self.own
+        gather = None if self.shard is None else self.shard.gather
         new_noise = self.noise + ctx.log2_special()
         acc: dict = {}
 
         def add_acc(h, d):
-            acc[h] = rt_add(ctx, acc[h], d, k, True) if h in acc else d
+            acc[h] = rt_add(ctx, acc[h], d, k, True, own) if h in acc else d
 
         ks_noise = NEG_INF
         for h, d in self.parts:
             if h.is_one or h.is_base(to_key):
-                add_acc(h, rt_add_special_and_scale(ctx, d, k))
+                add_acc(h, rt_add_special_and_scale(ctx, d, k, own))
                 continue
             W = get_ks_matrix(key, h, to_key=to_key)
             if W.ptxt_space > 1 and self.ptxt_space > 1:
                 self.ptxt_space = math.gcd(W.ptxt_space, self.ptxt_space)
-            digits, digit_noise = rt_break_into_digits(ctx, d, k)
-            sb, sa = ks_digit_mac(ctx, digits, W, k)
+            digits, digit_noise = rt_break_into_digits(ctx, d, k, own, gather)
+            sb, sa = ks_digit_mac(ctx, digits, W, k, own)
             add_acc(SKHandle(0, 1, 0), sb)
             add_acc(SKHandle(1, 1, to_key), sa)
             ks_noise = log2_add(ks_noise, digit_noise + W.noise)

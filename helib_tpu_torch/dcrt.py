@@ -34,35 +34,36 @@ from .exceptions import assert_true
 # elementwise ring ops (eval domain; shapes [..., P, N])
 # ---------------------------------------------------------------------------
 
-def rt_add(ctx: Context, a, b, k: int, special: bool):
-    q, _ = ctx.dev_q(k, special)
+def rt_add(ctx: Context, a, b, k: int, special: bool, own=None):
+    q, _ = ctx.dev_q(k, special, own)
     return add_mod(a, b, q)
 
 
-def rt_sub(ctx: Context, a, b, k: int, special: bool):
-    q, _ = ctx.dev_q(k, special)
+def rt_sub(ctx: Context, a, b, k: int, special: bool, own=None):
+    q, _ = ctx.dev_q(k, special, own)
     return sub_mod(a, b, q)
 
 
-def rt_neg(ctx: Context, a, k: int, special: bool):
-    q, _ = ctx.dev_q(k, special)
+def rt_neg(ctx: Context, a, k: int, special: bool, own=None):
+    q, _ = ctx.dev_q(k, special, own)
     return neg_mod(a, q)
 
 
-def rt_mul(ctx: Context, a, b, k: int, special: bool):
-    q, mu = ctx.dev_q(k, special)
+def rt_mul(ctx: Context, a, b, k: int, special: bool, own=None):
+    q, mu = ctx.dev_q(k, special, own)
     return mul_mod(a, b, q, mu)
 
 
-def rt_mul_scalar(ctx: Context, a, value: int, k: int, special: bool):
+def rt_mul_scalar(ctx: Context, a, value: int, k: int, special: bool,
+                  own=None):
     """Multiply by an integer constant (reduced per limb, Shoup)."""
     def build():
-        qs = ctx.primes_of(k, special).astype(np.uint64)
+        qs = ctx.primes_of(k, special, own).astype(np.uint64)
         w = np.array([value % int(q) for q in qs], dtype=np.uint32)[:, None]
         return (to_device(w, ctx.device),
                 to_device(modops.shoup(w, qs[:, None]), ctx.device))
-    w, wsh = ctx.cached(("scalar", value, k, special), build)
-    return mul_mod_shoup(a, w, wsh, ctx.dev_q(k, special)[0])
+    w, wsh = ctx.cached(("scalar", value, k, special, own), build)
+    return mul_mod_shoup(a, w, wsh, ctx.dev_q(k, special, own)[0])
 
 
 def rt_automorph(ctx: Context, a, kexp: int):
@@ -95,6 +96,13 @@ def coeffs_to_residues(ctx: Context, coeffs, rows: tuple) -> np.ndarray:
         out[i, :len(arr)] = np.array([int(v) % qi for v in arr],
                                      dtype=np.uint32)
     return out
+
+
+def rt_from_coeffs(ctx: Context, coeffs, k: int, special: bool):
+    """Host integer coefficients -> device eval-domain tensor."""
+    rows = ctx.rows_of(k, special)
+    res = coeffs_to_residues(ctx, coeffs, rows)
+    return ctx.fwd_ntt(to_device(res, ctx.device), rows)
 
 
 def rt_to_coeff_residues(ctx: Context, a, k: int, special: bool):
@@ -306,18 +314,24 @@ def _drop_consts(ctx: Context, drop_rows: tuple, target_rows: tuple,
 
 def rt_scale_down(ctx: Context, data, k: int, special: bool,
                   new_k: int, new_special: bool, ptxt_space: int,
-                  want_frac: bool = False):
+                  want_frac: bool = False, own=None):
     """Scaled mod-down (reference Ctxt::modDownToSet, in pure RNS).
 
     data: [..., P, N] eval tensor on prime set (k, special).  Returns data'
     on (new_k, new_special) with data' = (data - delta)/D where D is the
     product of dropped primes, delta = data (mod D), delta = 0 (mod
     ptxt_space), and delta balanced-small.  want_frac=True also returns the
-    balanced delta/D remainder [..., N] (float32) for the measured noise."""
+    balanced delta/D remainder [..., N] (float32) for the measured noise.
+    `own` (ctxt rows below k, Context.rows_of): data holds those ctxt rows
+    and the specials, as one rank of a limb mesh does; only the replicated
+    special primes can be dropped then, each rank lifting them onto its own
+    rows alone."""
     assert_true(new_k <= k and (special or not new_special),
                 'invariant: new_k <= k and (special or not new_special)')
-    old_rows = ctx.rows_of(k, special)
-    new_rows = ctx.rows_of(new_k, new_special)
+    assert_true(own is None or new_k == k,
+                "a row shard drops only its replicated special primes")
+    old_rows = ctx.rows_of(k, special, own)
+    new_rows = ctx.rows_of(new_k, new_special, own)
     drop_rows = tuple(r for r in old_rows if r not in new_rows)
     assert_true(drop_rows, "nothing to drop")
     keep_pos = tuple(old_rows.index(r) for r in new_rows)
@@ -325,7 +339,7 @@ def rt_scale_down(ctx: Context, data, k: int, special: bool,
     cst = ctx.cached(("drop", drop_rows, new_rows, ptxt_space),
                      lambda: _drop_consts(ctx, drop_rows, new_rows,
                                           ptxt_space))
-    t_q, _ = ctx.dev_q(new_k, new_special)
+    t_q, _ = ctx.dev_q(new_k, new_special, own)
 
     x_coeff = ctx.inv_ntt(data.index_select(-2, _rows(ctx, drop_pos)),
                           drop_rows)                        # [..., kd, N]
@@ -360,10 +374,11 @@ def rt_scale_down(ctx: Context, data, k: int, special: bool,
     return out
 
 
-def rt_add_special_and_scale(ctx: Context, data, k: int):
+def rt_add_special_and_scale(ctx: Context, data, k: int, own=None):
     """modUpToSet(specials): multiply by P = prod(special primes); new rows
-    are zero (reference DoubleCRT::addPrimesAndScale)."""
-    scaled = rt_mul_scalar(ctx, data, ctx.prod_special(), k, False)
+    are zero (reference DoubleCRT::addPrimesAndScale).  `own`: as in
+    rt_scale_down."""
+    scaled = rt_mul_scalar(ctx, data, ctx.prod_special(), k, False, own)
     zeros = scaled.new_zeros(data.shape[:-2] + (ctx.S, data.shape[-1]))
     return torch.cat([scaled, zeros], dim=-2)
 
@@ -399,7 +414,23 @@ def _digit_consts(ctx: Context, k: int) -> list:
     return consts
 
 
-def rt_break_into_digits(ctx: Context, data, k: int):
+def _digit_consts_rows(ctx: Context, k: int, own: tuple) -> list:
+    """_digit_consts restricted to the rows one rank of a limb mesh holds:
+    its ctxt rows `own` and the specials."""
+    held = _rows(ctx, tuple(own) + tuple(range(k, k + ctx.S)))
+    live = _rows(ctx, tuple(own))
+    out = []
+    for cst in ctx.cached(("digits", k), lambda: _digit_consts(ctx, k)):
+        sub = dict(cst)
+        for key, idx, dim in (("M", held, 1), ("M_sh", held, 1),
+                              ("D_mod_t", held, 0), ("D_mod_t_sh", held, 0),
+                              ("Dfinv", live, 0), ("Dfinv_sh", live, 0)):
+            sub[key] = cst[key].index_select(dim, idx)
+        out.append(sub)
+    return out
+
+
+def rt_break_into_digits(ctx: Context, data, k: int, own=None, gather=None):
     """Mixed-radix digit decomposition (reference DoubleCRT::breakIntoDigits):
     data [..., k, N] on the ctxt prefix (no specials) -> (digits, log2
     noise), digits a list of [..., k+S, N] eval tensors R_j with
@@ -408,37 +439,58 @@ def rt_break_into_digits(ctx: Context, data, k: int):
     Runs in the coefficient domain: one inverse transform of the live rows,
     the digit recursion as elementwise ops, and per digit one forward
     transform of its extension rows only; the digit's own rows are the
-    running value's eval rows, for free."""
-    consts = ctx.cached(("digits", k), lambda: _digit_consts(ctx, k))
-    all_rows = ctx.rows_of(k, True)
-    t_q, _ = ctx.dev_q(k, True)
-    live_q = ctx.dev_q(k, False)[0]
-    cur = ctx.inv_ntt(data, ctx.rows_of(k, False))     # [..., k, N] coeffs
-    cur_eval = data                                     # same value, eval
+    running value's eval rows, for free.
+
+    `own` (a contiguous range of ctxt rows below k) and `gather`: data holds
+    only those rows, as one rank of a limb mesh does (parallel/mesh.py),
+    and the digits come back on them and the specials.  `gather(s, e, x)`
+    returns the coefficient rows [s, e) of the whole value from each rank's
+    rows of that range (x: this rank's, possibly none): the one exchange
+    across limbs, taken digit by digit because digit j's rows depend on the
+    digits before it.  Each rank extends each digit onto its own rows and
+    the specials alone."""
+    if own is None:
+        consts = ctx.cached(("digits", k), lambda: _digit_consts(ctx, k))
+        lo, n_own = 0, k
+    else:
+        consts = ctx.cached(("digits", k, own),
+                            lambda: _digit_consts_rows(ctx, k, own))
+        lo, n_own = own[0], len(own)
+    held = ctx.rows_of(k, True, own)
+    t_q, _ = ctx.dev_q(k, True, own)
+    live_q = ctx.dev_q(k, False, own)[0]
+    cur = ctx.inv_ntt(data, ctx.rows_of(k, False, own))  # [..., n_own, N]
+    cur_eval = data                                       # same value, eval
     digits = []
     for j, cst in enumerate(consts):
         s, e = cst["rows"]
-        digit_coeff = _balanced_lift(cst, cur[..., s:e, :], t_q)[3]
-        ext_rows = all_rows[:s] + all_rows[e:]
-        ext_coeff = torch.cat([digit_coeff[..., :s, :],
-                               digit_coeff[..., e:, :]], dim=-2)
+        # the digit block's rows held here: positions [a, b) of cur
+        a, b = min(max(s - lo, 0), n_own), min(max(e - lo, 0), n_own)
+        block = cur[..., a:b, :]
+        if own is not None:
+            block = gather(s, e, block)
+        digit_coeff = _balanced_lift(cst, block, t_q)[3]
+        ext_rows = held[:a] + held[b:]
+        ext_coeff = torch.cat([digit_coeff[..., :a, :],
+                               digit_coeff[..., b:, :]], dim=-2)
         ext_eval = ctx.fwd_ntt(ext_coeff, ext_rows)
-        digit_eval = torch.cat([ext_eval[..., :s, :], cur_eval[..., s:e, :],
-                                ext_eval[..., s:, :]], dim=-2)
+        digit_eval = torch.cat([ext_eval[..., :a, :], cur_eval[..., a:b, :],
+                                ext_eval[..., a:, :]], dim=-2)
         digits.append(digit_eval)
         if j + 1 < len(consts):
             # cur <- (cur - R_j) / B_j in both domains (pointwise, so the
             # two stay consistent)
             Dfinv, Dfinv_sh = cst["Dfinv"], cst["Dfinv_sh"]
-            cur = mul_mod_shoup(sub_mod(cur, digit_coeff[..., :k, :], live_q),
-                                Dfinv, Dfinv_sh, live_q)
+            cur = mul_mod_shoup(
+                sub_mod(cur, digit_coeff[..., :n_own, :], live_q),
+                Dfinv, Dfinv_sh, live_q)
             cur_eval = mul_mod_shoup(
-                sub_mod(cur_eval, digit_eval[..., :k, :], live_q),
+                sub_mod(cur_eval, digit_eval[..., :n_own, :], live_q),
                 Dfinv, Dfinv_sh, live_q)
     noise = log2_sum([ctx.noise_uniform(cst["log2_D"] - 1.0)
                       for cst in consts])
     from . import timing
-    if timing.fhe_stats:
+    if timing.fhe_stats and own is None:
         # noise-model validation: measured canonical-embedding norm of each
         # digit vs the bound charged to the noise estimate (reference
         # HELIB_STATS_UPDATE("break-into-digits-ratio"), DoubleCRT.cpp:548)
@@ -447,7 +499,7 @@ def rt_break_into_digits(ctx: Context, data, k: int):
             res = to_host(rt_to_coeff_residues(ctx, dj, k, True))
             if res.ndim > 2:          # batched: measure the first element
                 res = res.reshape(-1, *res.shape[-2:])[0]
-            coeffs = crt_reconstruct(ctx, res, all_rows)
+            coeffs = crt_reconstruct(ctx, res, held)
             norm_log2 = embedding_largest_coeff_log2(coeffs, ctx.m,
                                                      ctx.pal.pow2)
             bound_log2 = ctx.noise_uniform(cst["log2_D"] - 1.0)

@@ -6,7 +6,7 @@ from __future__ import annotations
 import sys
 
 _warnings_seen: set = set()
-_log_file = sys.stderr
+_log_file = None           # None: the sys.stderr of the moment
 
 
 def set_log_file(f):
@@ -15,7 +15,8 @@ def set_log_file(f):
 
 
 def helog(msg: str):
-    print(f"[helib_tpu_torch] {msg}", file=_log_file)
+    print(f"[helib_tpu_torch] {msg}",
+          file=sys.stderr if _log_file is None else _log_file)
 
 
 def warning(msg: str, once: bool = False):

@@ -89,6 +89,10 @@ def _load():
             ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint32),
             ctypes.c_int64, ctypes.POINTER(ctypes.c_double),
             ctypes.POINTER(ctypes.c_int32)]
+        lib.crt_mod_switch.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint32),
+            ctypes.c_int64, ctypes.c_uint64, ctypes.c_uint64,
+            ctypes.POINTER(ctypes.c_int64)]
         _lib = lib
         return _lib
 
@@ -164,6 +168,18 @@ class CrtCombiner:
             mant.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
             ex.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
         return mant, ex
+
+    def mod_switch(self, residues, q: int, p2r: int) -> np.ndarray:
+        """HElib's rawModSwitch rounding per coefficient (power basis): the
+        balanced CRT value c, (X, Y) = divmod(c q, Q) with Y balanced, then
+        X + balanced(Y Q^-1 mod p2r), balanced mod q; [N] int64."""
+        r = self._res(residues)
+        out = np.empty(r.shape[1], dtype=np.int64)
+        self._lib.crt_mod_switch(
+            self._h, r.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+            r.shape[1], q, p2r,
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+        return out
 
 
 _combiners: dict = {}

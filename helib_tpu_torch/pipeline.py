@@ -36,16 +36,17 @@ def random_parts(ctx: Context, k: int, count: int) -> tuple:
 
 
 def mult_relin(ctx: Context, pk: PubKey, key, noise: float, k: int,
-               c0_0, c0_1, c1_0, c1_1) -> Ctxt:
+               c0_0, c0_1, c1_0, c1_1, shard=None) -> Ctxt:
     """The relinearized product of two canonical ciphertexts at level k
     (given as their part tensors), special primes dropped.  The mod-switch
     noise is not measured (no host round trip), as in helib_tpu's traced
-    pipeline, so the result's noise equals the jitted reference's."""
+    pipeline, so the result's noise equals the jitted reference's.
+    `shard` (parallel/mesh.py LimbShard): the parts hold one rank's rows."""
     pr = ctx.ptxt_space if ctx.scheme == "bgv" else 1
 
     def mk(a, b):
         return Ctxt(ctx, pk, [(SKHandle(0, 1, 0), a), (SKHandle(1, 1, 0), b)],
-                    k, False, pr, noise, 1)
+                    k, False, pr, noise, 1, shard=shard)
     out = mk(c0_0, c0_1).tensor(mk(c1_0, c1_1))
     out.relinearize(key)
     out.drop_special_primes(measure=False)
@@ -53,10 +54,12 @@ def mult_relin(ctx: Context, pk: PubKey, key, noise: float, k: int,
 
 
 def make_mult_relin(ctx: Context, sk: SecKey, k: int | None = None,
-                    noise: float | None = None):
+                    noise: float | None = None, shard=None):
     """Returns (fn, example_args): fn maps the four part tensors of two
     canonical ciphertexts at level k to the two part tensors of their
-    relinearized product (with special primes dropped)."""
+    relinearized product (with special primes dropped).  With a `shard`,
+    fn takes and returns one rank's rows of each (the example arguments
+    stay whole)."""
     k = k if k is not None else ctx.L
     pk = sk.pubkey or PubKey(sk)
     sk.gen_ks_matrix(SKHandle(2, 1, 0))
@@ -64,7 +67,8 @@ def make_mult_relin(ctx: Context, sk: SecKey, k: int | None = None,
     noise = noise if noise is not None else fresh_noise(ctx, pk)
 
     def fn(c0_0, c0_1, c1_0, c1_1):
-        out = mult_relin(ctx, pk, sk, noise, k, c0_0, c0_1, c1_0, c1_1)
+        out = mult_relin(ctx, pk, sk, noise, k, c0_0, c0_1, c1_0, c1_1,
+                         shard)
         parts = dict((h.powS, d) for h, d in out.parts)
         return parts[0], parts[1]
 
@@ -72,21 +76,22 @@ def make_mult_relin(ctx: Context, sk: SecKey, k: int | None = None,
 
 
 def make_batched_mult_relin(ctx: Context, sk: SecKey, batch: int,
-                            k: int | None = None):
+                            k: int | None = None, shard=None):
     """Batched version: the same fn on [batch, k, N] part tensors; the
     example arguments are the unbatched ones repeated `batch` times."""
-    fn, ex = make_mult_relin(ctx, sk, k)
+    fn, ex = make_mult_relin(ctx, sk, k, shard=shard)
     bex = tuple(e.unsqueeze(0).repeat(batch, 1, 1) for e in ex)
     return fn, bex
 
 
 def make_automorph_relin(ctx: Context, sk: SecKey, kexp: int | None = None,
-                         k: int | None = None):
+                         k: int | None = None, shard=None):
     """Returns (fn, example_args): fn maps the two part tensors of a
     canonical ciphertext at level k to those of its rotation X -> X^kexp,
     key-switched back to the base key, special primes dropped (HElib's
     smartAutomorph with an exact matrix).  kexp defaults to the first
-    hypercube generator, or 3 where there is none."""
+    hypercube generator, or 3 where there is none.  `shard`: as in
+    make_mult_relin."""
     k = k if k is not None else ctx.L
     pk = sk.pubkey or PubKey(sk)
     if kexp is None:
@@ -98,7 +103,7 @@ def make_automorph_relin(ctx: Context, sk: SecKey, kexp: int | None = None,
 
     def fn(c0, c1):
         ct = Ctxt(ctx, pk, [(SKHandle(0, 1, 0), c0), (SKHandle(1, 1, 0), c1)],
-                  k, False, pr, noise, 1)
+                  k, False, pr, noise, 1, shard=shard)
         ct.automorph(kexp)
         ct.relinearize(sk)
         ct.drop_special_primes(measure=False)

@@ -316,8 +316,16 @@ def raw_mod_switch(ctxt: Ctxt, q: int, pwb=None) -> list[np.ndarray]:
     Qinv = inv_mod(Q % p2r, p2r)
     out = []
     parts = dict((h.powS, d) for h, d in ctxt.parts)
+    from .nt.native import combiner_for
+    comb = (combiner_for([int(qq) for qq in ctx.all_q[np.array(rows)]])
+            if (pwb is None and ctx.pal.pow2) else None)
     for i in (0, 1):
         res = to_host(ctx.inv_ntt(parts[i], rows))
+        if comb is not None:
+            # native path (power basis, power-of-2 m): the balanced CRT and
+            # the divmod rounding in C++ (native/crt_kernels.cpp)
+            out.append(comb.mod_switch(res, q, p2r))
+            continue
         vals = dcrt.crt_reconstruct(ctx, res, rows, balanced=True)
         if pwb is not None:
             vals = pwb.poly_to_w_powerful(vals, Q)

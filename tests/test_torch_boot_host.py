@@ -169,3 +169,70 @@ def test_evalmap_stage_matrices(params, e_r):
                                                        jm._fat_stages)
         assert [s[0] for s in tm.stages] == [s[0] for s in jm.stages]
         assert _plain(tm.stages) == _plain(jm.stages)
+
+
+# ---------------------------------------------------------------------------
+# the native raw mod switch (power-of-2 m)
+# ---------------------------------------------------------------------------
+
+def _primes_above(n, start=1 << 29):
+    """tests/test_native.py's primes."""
+    out, x = [], start + 1
+    while len(out) < n:
+        if x % 2 and all(x % i for i in range(3, int(x ** 0.5) + 1, 2)):
+            out.append(x)
+        x += 2
+    return out
+
+
+@pytest.mark.parametrize("q,p2r", [(2**8 + 1, 2), (2**10 + 1, 4),
+                                   (3**6 + 1, 9)])
+def test_crt_mod_switch_matches_helib_tpu(q, p2r):
+    """CrtCombiner.mod_switch against helib_tpu's on tests/test_native.py's
+    inputs (17 primes above 2^29, 512 residues from default_rng(5))."""
+    from helib_tpu.nt.native import combiner_for as jcomb
+    from helib_tpu_torch.nt.native import available, combiner_for as tcomb
+    assert available(), "the native combiner did not build"
+    rng = np.random.default_rng(5)
+    qs = _primes_above(17)
+    res = np.stack([rng.integers(0, q_, 512).astype(np.uint32) for q_ in qs])
+    np.testing.assert_array_equal(tcomb(qs).mod_switch(res, q, p2r),
+                                  jcomb(qs).mod_switch(res, q, p2r))
+
+
+def test_raw_mod_switch_native_path_equals_object_ints(monkeypatch):
+    """At power-of-2 m with the power basis raw_mod_switch takes the native
+    rounding; it gives the object-int loop's integers."""
+    from helib_tpu_torch.keys import SecKey, PubKey
+    from helib_tpu_torch.nt import native
+    ctx = TContext(m=64, p=3, r=2, bits=120, c=2, device="cpu")
+    sk = SecKey(ctx, seed=3)
+    rng = np.random.default_rng(4)
+    ct = PubKey(sk).encrypt_bgv(rng.integers(0, 9, ctx.phi_m), rng)
+    assert native.available()
+    fast = trc.raw_mod_switch(ct, 2**12 + 1)
+    monkeypatch.setattr(native, "combiner_for", lambda qs: None)
+    slow = trc.raw_mod_switch(ct, 2**12 + 1)
+    for a, b in zip(fast, slow):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_rt_from_coeffs_round_trips_bignum_coefficients():
+    """dcrt.rt_from_coeffs: balanced coefficients far above one prime come
+    back from the eval domain exactly, and small ones as
+    small_coeffs_to_rt gives them."""
+    from helib_tpu_torch import dcrt
+    ctx = TContext(m=45, p=2, r=1, bits=150, c=3, device="cpu")
+    rng = np.random.default_rng(9)
+    big = [int(v) * (1 << 100) + int(w) for v, w in
+           zip(rng.integers(-2**20, 2**20, ctx.n_eval),
+               rng.integers(0, 2**40, ctx.n_eval))]
+    rows = ctx.rows_of(ctx.L, False)
+    ev = dcrt.rt_from_coeffs(ctx, big, ctx.L, False)
+    back = dcrt.crt_reconstruct(
+        ctx, dcrt.to_host(dcrt.rt_to_coeff_residues(ctx, ev, ctx.L, False)),
+        rows)
+    assert [int(v) for v in back] == big
+    small = rng.integers(-3, 4, ctx.n_eval)
+    assert torch.equal(dcrt.rt_from_coeffs(ctx, small, ctx.L, True),
+                       dcrt.small_coeffs_to_rt(ctx, small, ctx.L, True))

@@ -3,9 +3,12 @@ conv2, the probes P1 and P2) and its BGV and CKKS paths (CKKS at m=1024
 and m=131072), the BGV slot layer and the thin bootstrap at m=1271 on the
 card, against the plain torch versions and the port on the CPU; the sizes
 above the kernels' 2^16 (BGV m=35113, CKKS m=262144) on the staged
-transforms, and the command-line utilities on the card.  The thin
-bootstrap at m=35113 runs for minutes and is marked `cuda_long` as well
-(`-m "not cuda_long"` leaves it out).
+transforms, and the command-line utilities on the card.  The twins of
+examples/01-10 run on the card, and the parallel layer's two-rank m=45
+pipelines run as two gloo ranks sharing it.  The thin bootstrap at m=35113
+and the whole multi-rank dry run (entry.dryrun_multichip on two ranks) run
+for minutes and are marked `cuda_long` as well (`-m "not cuda_long"` leaves
+them out).
 
 Every test needs an NVIDIA GPU and skips without one.  The file imports no
 JAX, so it also runs where only PyTorch is installed (the conftest, which
@@ -582,3 +585,66 @@ def test_thin_recrypt_m35113_on_staged_transforms(gpu):
     assert after[0] > before[0] and after[1:] == before[1:]
     assert out.is_correct() and out.capacity() > low.capacity() + 30
     assert np.array_equal(sk.decrypt_bgv(out), ea.encode(slots))
+
+
+# ---------------------------------------------------------------------------
+# the example twins and the parallel layer
+# ---------------------------------------------------------------------------
+
+TWINS = sorted(p for p in (__import__("pathlib").Path(__file__).resolve()
+                           .parents[1] / "helib_tpu_torch" / "examples")
+               .glob("*.py"))
+
+
+@pytest.mark.parametrize("path", TWINS, ids=lambda p: p.stem)
+def test_example_twin_on_gpu(gpu, path):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(f"twin_{path.stem}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.main(device="cuda")
+
+
+def _m45_two_ranks():
+    """Each gloo rank on the card: the m=45 sharded mult+relin on (1, 2)
+    and (2, 1) meshes and the sharded rotate, gathered."""
+    from helib_tpu_torch.parallel import mesh as pmesh
+    from helib_tpu_torch.parallel.distributed import rank_device
+    dev = rank_device("cuda")
+    ctx = Context(m=45, p=2, r=1, bits=118, c=3, device=dev)
+    sk = SecKey(ctx, seed=1)
+    out = {}
+    for batch_axis in (1, 2):
+        m = pmesh.make_mesh(2, batch_axis)
+        fn, ex = pmesh.sharded_mult_relin(ctx, sk, m, 2)
+        out[batch_axis] = [m.gather(o).cpu() for o in fn(*ex)]
+    m = pmesh.make_mesh(2, 1)
+    rfn, rex = pmesh.sharded_automorph_relin(ctx, sk, m, 2)
+    out["rotate"] = [m.gather(o).cpu() for o in rfn(*rex)]
+    return out
+
+
+def test_two_rank_sharded_m45_on_gpu(gpu):
+    """Two gloo ranks sharing the card: gathered results equal the
+    unsharded port on the card."""
+    from helib_tpu_torch.parallel.distributed import launch
+    ranks = launch(_m45_two_ranks, 2, backend="gloo", timeout=600)
+    ctx = Context(m=45, p=2, r=1, bits=118, c=3)
+    sk = SecKey(ctx, seed=1)
+    fn, ex = make_batched_mult_relin(ctx, sk, 2)
+    want = [w.cpu() for w in fn(*ex)]
+    rfn, rex = make_automorph_relin(ctx, sk)
+    rwant = [w.cpu() for w in rfn(*rex)]
+    for res in ranks:
+        for b in (1, 2):
+            assert all(torch.equal(g, w) for g, w in zip(res[b], want))
+        for g, w in zip(res["rotate"], rwant):
+            assert torch.equal(g, w.expand_as(g))
+
+
+@pytest.mark.cuda_long
+def test_dryrun_multichip_two_ranks_on_gpu(gpu):
+    """entry.dryrun_multichip in full on two gloo ranks sharing the card."""
+    from helib_tpu_torch.entry import dryrun_multichip
+    from helib_tpu_torch.parallel.distributed import launch
+    launch(dryrun_multichip, 2, 2, "cuda", backend="gloo", timeout=3000)
