@@ -84,21 +84,22 @@ Phases, in order; any failure exits non-zero:
      EvalMaps and ekey), slots from default_rng(143) brought to k=3, one cold
      thin_recrypt with the SecKey (matrices minted, their bytes) and a warm
      one with the PubKey alone (nothing minted; its host and event ms, host
-     ms per stage and K3's row on a sample of its inputs); each decrypts to
+     ms per stage; K3's row on a sample of a warm run's inputs under
+     disable_jit(), equal to the graphs' run); each decrypts to
      the input slots, is correct, gains more than 30 bits of capacity and
-     multiplies correctly after; K3 alone launched, its count; a second
-     warm run under the profiler (busy share), equal to the first; the
-     warm run bit-identical to the plain-K3 chain (the cached diagonals
-     rebuilt plain, each plain convolution one replay of a CUDA graph of
-     its kernels); peak memory;
+     multiplies correctly after; K3 alone launched, its count; a warm run
+     under the profiler with the graphs and one under disable_jit() (busy
+     share), each equal to the first; the warm run bit-identical to the
+     plain-K3 chain (the cached diagonals rebuilt plain, each site's
+     plain chain one replay of a CUDA graph of its own); peak memory;
  14. m=1271 (HElib's bgv_thinboot/bgv_fatboot "tiny" size), thin and fat
      with SecKey(seed=131, hwt=64): ms of a cold run with the SecKey and a
      warm one with the PubKey (nothing minted) through K3 alone, each
      decrypting exactly to its input; the warm thin bootstrap bit-identical
      to the port on the host CPU at the full 600 bits (in a second process
      while the fat one runs; keys and recryption state carried by
-     convert.py, slot tables rebuilt); K3's row on the thin warm run's
-     inputs;
+     convert.py, slot tables rebuilt); K3's row on the inputs of the thin
+     warm run again under disable_jit() (equal to the graphs' run);
  15. HElib's circuit library at the BGV_binary_arithmetic size m=4095, p=2,
      bits=500, c=2, mvec=(7, 5, 9, 13) (144 slots of GF(2^12), hypercube
      [6, 4, 6], B = 8192) with SecKey(seed=151), data from
@@ -113,17 +114,21 @@ Phases, in order; any failure exits non-zero:
      alone with the PubKey, decrypted exactly to numpy in all 144 slots;
      the permutation held against the plain K3 and the 8-bit add against
      the port on the host CPU; ms cold and warm, K3 launches and capacity
-     left per op, the busy share of a profiled 8-bit add, K3's row on a
-     sample of the warm ops' inputs, peak memory;
+     left per op, the busy share of a profiled 8-bit add, the add, the
+     compare and the permutation warm again under disable_jit() (equal to
+     the graphs' run) and K3's row on a sample of their inputs, peak
+     memory;
  16. MatMulCKKS at HElib's ckks_basic size m=16384 (N = 8192, 4096 slots),
      bits=360, c=3, r=30, with SecKey(seed=161), a dense M and z uniform in
      [-1, 1] from default_rng(163) and the 126 BSGS rotation matrices
-     minted first: one apply with BSGS (g = 64) through K2 alone, within
-     4 x error_bound() of M @ z (and within 1e-2 without the decrypt's
-     mitigation noise) and bit-identical to the same apply with
-     the plain K2 (each plain transform one replay of a CUDA graph of its
-     kernels, the diagonals replayed); ms split into host diagonal
-     extraction, encodes and the rest, K2's row at n = 8192, peak memory;
+     minted first: one apply with BSGS (g = 64) through K2 alone under
+     disable_jit() (sampled for K2's row), within 4 x error_bound() of
+     M @ z (and within 1e-2 without the decrypt's mitigation noise); the
+     same apply with the graphs and with the plain K2 (each site's plain
+     chain one replay of a CUDA graph of its own), the diagonals and
+     encodes replayed, each bit-identical to it; ms split into host
+     diagonal extraction, encodes and the rest, the graphs' ms, K2's row
+     at n = 8192, peak memory;
  17. diagnostics, infra and the size above the kernels: (a) HElib's big
      bootstrapping size m=35113, p=2, bits=600, c=3, mvec=(37, 949)
      (benchmarks/thinboot_bench.py "big", B = 131072) with SecKey(seed=141,
@@ -172,6 +177,26 @@ Phases, in order; any failure exits non-zero:
  19. the ten twins of examples/01-10 (helib_tpu_torch/examples) run in
      this process on the card through importlib, each passing its own
      assertions; ms and kernel launches per example.
+Every path runs through the package's jit sites (helib_tpu_torch/
+jitutil.py): each transform, digit decomposition, scaled mod-down and
+decrypt inner product is one CUDA-graph replay a call once captured, and
+phases 4, 5, 9 and 10 wrap their mult+relin (and phase 10 its rotate) in
+jitutil.lifted_jit, as bench.py wraps helib_tpu's, so a call is one replay
+plus its input and output copies; the first call of each signature runs
+the function once (counted) and captures it.  Each lifted call is held
+bit for bit to the same call under jitutil.disable_jit(); the plain-chain
+checks, K3's samples and the kernel rows run under disable_jit(), where
+every site runs its Python (the swapped-in function is called, the
+wrappers count); the plain reruns of phases 13 and 16 keep the graphs on,
+each site capturing the plain chain as a graph of its own (a graph is
+keyed by the kernel entry points it dispatched to).  Six paths -- the BGV
+m=8009 and CKKS m=65536 batch-16 calls, the m=32003 mult+relin, the
+m=31775 warm rotate by 1 and warm thin bootstrap, the m=4095 warm 8-bit
+add -- are read with their graphs and under disable_jit() (the launches
+the host issued a call, device ms and busy share from torch.profiler, host
+ms, ops/s of the batched two, the graphs their cold call captured, the
+pool's bytes), the outputs of the two equal, and printed as one block at
+the end.
 Phase 18's ranks start and set up while phase 19 runs, then run their
 timed parts.  `--parallel-only` runs the build, phases 3 and 4 and then
 phases 19 and 18 alone.  Each path, each op and the probe run is driven with the launch
@@ -446,30 +471,44 @@ def ntt_bound_ms(x, inverse: bool) -> tuple[float, float]:
 class swap:
     """Context manager replacing module.name for its duration: routes a
     path to a kernel's plain version (`swap(mod, "ntt", mod.ntt_plain)`),
-    or records every call's arguments (`capture`)."""
+    or records every call's arguments (`capture`).  With eager=True it
+    also holds jitutil.disable_jit() open, so every site runs its Python
+    (a replay would skip the swapped-in function)."""
 
-    def __init__(self, mod, name: str, repl):
+    def __init__(self, mod, name: str, repl, eager: bool = False):
         self.mod, self.name, self.repl = mod, name, repl
+        self.eager = contextlib.ExitStack() if eager else None
 
     def __enter__(self):
+        if self.eager is not None:
+            from helib_tpu_torch.jitutil import disable_jit
+            self.eager.enter_context(disable_jit())
         self.saved = getattr(self.mod, self.name)
         setattr(self.mod, self.name, self.repl)
         return self
 
     def __exit__(self, *exc):
         setattr(self.mod, self.name, self.saved)
+        if self.eager is not None:
+            self.eager.close()
+
+
+def plain(mod, name: str, repl) -> swap:
+    """The plain-chain check's swap: the kernel's plain version in its
+    place, every site eager."""
+    return swap(mod, name, repl, eager=True)
 
 
 def capture(mod, name: str) -> swap:
     """swap() that passes every call through and keeps its arguments in
-    `.calls`."""
+    `.calls`, every site eager."""
     orig = getattr(mod, name)
     calls = []
 
     def rec(*args):
         calls.append(args)
         return orig(*args)
-    cm = swap(mod, name, rec)
+    cm = swap(mod, name, rec, eager=True)
     cm.calls = calls
     return cm
 
@@ -545,6 +584,30 @@ def check_outputs(out, ctx, batch: int | None, dev):
             raise AssertionError("output residues out of range")
 
 
+def once_a_call(fn, args, first, launches: dict, label: str):
+    """A lifted_jit run after its capture: one replay a call, whose launch
+    counts equal those of its first (eager) call; the output equal to the
+    first call's and to the same call under disable_jit()."""
+    from helib_tpu_torch import jitutil
+    if fn.captures != 1:
+        raise AssertionError(f"{label}: {fn.captures} graphs captured")
+    reset_launches()
+    replays = jitutil.replays
+    out = fn(*args)
+    torch.cuda.synchronize()
+    if jitutil.replays - replays != 1 or read_launches() != launches:
+        raise AssertionError(f"{label}: a call was not one replay of the "
+                             f"captured launches: {read_launches()}")
+    same_outputs(out, first, f"{label} (the replay against the first call)")
+    with jitutil.disable_jit():
+        ref = fn(*args)
+    same_outputs(out, ref, label)
+    print(f"{label}: a call is one CUDA-graph replay (1 graph, "
+          f"{fn.pool_bytes} bytes added to the pool by its capture), its "
+          f"counts those of the eager call; bit-identical to the same call "
+          f"under disable_jit()")
+
+
 def main_path(dev):
     from helib_tpu_torch.context import Context
     from helib_tpu_torch.keys import SecKey, SKHandle, reduce_mod_phim
@@ -554,25 +617,32 @@ def main_path(dev):
                                           fresh_noise)
     from helib_tpu_torch.ops import conv as convmod
 
+    from helib_tpu_torch import jitutil
+
     t0 = time.time()
     ctx = Context(m=M, p=P_PLAIN, r=1, bits=BITS, c=C, device=dev)
     sk = SecKey(ctx, seed=SEED)
     fn, args = make_batched_mult_relin(ctx, sk, BATCH)
+    # one compiled program a call, as bench.py:55-56 runs helib_tpu's
+    fn = jitutil.lifted_jit(fn, *args)
     torch.cuda.synchronize()
     setup_s = time.time() - t0
     print(f"main path: {ctx!r}; setup {setup_s:.1f} s")
 
     reset_launches()
+    t0 = time.time()
     out = fn(*args)
     torch.cuda.synchronize()
     launches = read_launches()
-    print(f"main path: one batched call launched {launches}")
+    print(f"main path: one batched call launched {launches} (its warm-up "
+          f"and capture: {(time.time() - t0) * 1e3:.1f} ms)")
     expect_only(launches, "conv", "BGV path")
     check_outputs(out, ctx, BATCH, dev)
+    once_a_call(fn, args, out, launches, "main path")
 
     # the same chain on batch element 0 with the plain convolution
     pk = sk.pubkey
-    with swap(convmod, "conv", convmod.conv_plain):
+    with plain(convmod, "conv", convmod.conv_plain):
         before = read_launches()
         ref = mult_relin(ctx, pk, sk, fresh_noise(ctx, pk), ctx.L,
                          *[a[0] for a in args])
@@ -631,12 +701,14 @@ def ckks_path(dev, params: dict = CKKS, batch: int | None = BATCH,
                                           make_mult_relin, mult_relin,
                                           fresh_noise)
     from helib_tpu_torch.ops import ntt_fused
+    from helib_tpu_torch.jitutil import lifted_jit
 
     t0 = time.time()
     ctx = Context(**params, device=dev)
     sk = SecKey(ctx, seed=CKKS_SEED)
     fn, args = (make_mult_relin(ctx, sk) if batch is None
                 else make_batched_mult_relin(ctx, sk, batch))
+    fn = lifted_jit(fn, *args)
     torch.cuda.synchronize()
     print(f"{label}: {ctx!r}; setup {time.time() - t0:.1f} s")
 
@@ -648,12 +720,13 @@ def ckks_path(dev, params: dict = CKKS, batch: int | None = BATCH,
           f"launched {launches}")
     expect_only(launches, "ntt", label)
     check_outputs(out, ctx, batch, dev)
+    once_a_call(fn, args, out, launches, label)
     one = list(args) if batch is None else [a[0] for a in args]
     first = list(out) if batch is None else [o[0] for o in out]
 
     # the same chain on batch element 0 with the plain NTT
     pk = sk.pubkey
-    with swap(ntt_fused, "ntt", ntt_fused.ntt_plain):
+    with plain(ntt_fused, "ntt", ntt_fused.ntt_plain):
         before = read_launches()
         ref = mult_relin(ctx, pk, sk, fresh_noise(ctx, pk), ctx.L, *one)
         torch.cuda.synchronize()
@@ -887,14 +960,20 @@ def perop_path(dev, card: str) -> dict:
     from helib_tpu_torch.nt import native
     from helib_tpu_torch.pipeline import (make_mult_relin,
                                           make_automorph_relin, make_encrypt)
+    from helib_tpu_torch import jitutil
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     ctx = Context(**BIG, device=dev)
     sk = SecKey(ctx, seed=BIG_SEED)
     pk = PubKey(sk)
+    # the mult+relin and the rotate each one compiled program; the encrypt
+    # stays eager (its samplers draw from a torch.Generator), its
+    # transforms graphed at their site
     mfn, margs = make_mult_relin(ctx, sk)
-    rfn, _ = make_automorph_relin(ctx, sk)
+    mfn = jitutil.lifted_jit(mfn, *margs)
+    rfn, rargs = make_automorph_relin(ctx, sk)
+    rfn = jitutil.lifted_jit(rfn, *rargs)
     efn = make_encrypt(ctx, pk)
     torch.cuda.synchronize()
     setup_s = time.time() - t0
@@ -930,11 +1009,16 @@ def perop_path(dev, card: str) -> dict:
     cts = [pk.encrypt_bgv(pt, rng) for pt in pts]
     parts = [[d for _, d in ct.parts] for ct in cts]
 
+    caps = jitutil.captures
     out = run("mult", lambda: mfn(*parts[0], *parts[1]), True)
+    caps_mult = jitutil.captures - caps
     check("mult", sk.decrypt_bgv(ctxt(out, L, False)),
           np.convolve(pts[0], pts[1]))
+    once_a_call(mfn, (*parts[0], *parts[1]), out, counts["mult"],
+                "perop mult")
 
     rot = run("rotate", lambda: rfn(*parts[0]), True)
+    once_a_call(rfn, parts[0], rot, counts["rotate"], "perop rotate")
     moved = np.zeros(ctx.m, dtype=np.int64)
     np.add.at(moved, (np.arange(ctx.phi_m) * kexp) % ctx.m, pts[0])
     check("rotate", sk.decrypt_bgv(ctxt(rot, L, False)), moved)
@@ -968,7 +1052,7 @@ def perop_path(dev, card: str) -> dict:
     print(f"perop: launches per op {json.dumps(counts)}")
 
     # the rotate with the plain K3, and on the host CPU (keys carried over)
-    with swap(convmod, "conv_aux", convmod.conv_aux_plain):
+    with plain(convmod, "conv_aux", convmod.conv_aux_plain):
         reset_launches()
         ref = rfn(*parts[0])
         torch.cuda.synchronize()
@@ -1008,7 +1092,9 @@ def perop_path(dev, card: str) -> dict:
         print(f"perop: {name} {v:.3f} ms")
     print(f"perop: host CRT through the native combiner: "
           f"{native.available()}")
-    profile(mfn, (*parts[0], *parts[1]), "bgv m=32003 mult+relin")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    graphs_beside_eager("m=32003 mult+relin", mfn, (*parts[0], *parts[1]),
+                        caps_mult, card)
     row = kernel_row(mfn, (*parts[0], *parts[1]), counts["mult"], "conv_aux")
     from helib_tpu_torch.ops.conv import conv_aux_max_clusters
     print(f"perop: K3's n = 65536 kernel: {conv_aux_max_clusters(dev)} "
@@ -1019,8 +1105,7 @@ def perop_path(dev, card: str) -> dict:
         "launches_per_op": counts,
         "conv_aux_ms_per_launch": row["ms"],
         "conv_aux_clusters_resident": conv_aux_max_clusters(dev),
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
-        "card": card}))
+        "peak_mem_gb": peak, "card": card}))
     return row, host_check, (ctx, sk, pk, cts)
 
 
@@ -1100,6 +1185,7 @@ def slot_path(dev, card: str, perop_host) -> dict:
     from helib_tpu_torch.keys import SecKey, PubKey
     from helib_tpu_torch.ops import conv as convmod
     from helib_tpu_torch.ptxt import PtxtBGV
+    from helib_tpu_torch import jitutil
 
     torch.cuda.reset_peak_memory_stats()
     setup = {}
@@ -1148,6 +1234,7 @@ def slot_path(dev, card: str, perop_host) -> dict:
         decrypt checked against the oracle; then WARM_REPS times more,
         warm (the counts are of one run)."""
         reset_launches()
+        caps = jitutil.captures
         out, cold_h, cold_e = timed(f)
         c = read_launches()
         if any(v for key, v in c.items() if key != "conv_aux"):
@@ -1157,7 +1244,8 @@ def slot_path(dev, card: str, perop_host) -> dict:
         if want is not None:
             check(name, out, want)
         ms[name] = {"cold_host": cold_h, "cold_event": cold_e}
-        counts[name] = {"cold": c["conv_aux"]}
+        counts[name] = {"cold": c["conv_aux"],
+                        "captures": jitutil.captures - caps}
         if warm:
             reset_launches()
             _, ms[name]["host"], ms[name]["event"] = timed(f, WARM_REPS)
@@ -1180,6 +1268,7 @@ def slot_path(dev, card: str, perop_host) -> dict:
     c3 = run("mul_by_constant", lambda: _times(c2, fat), want)
     mask_cold = fat_masks(ea)
     r1 = run("rotate1", lambda: ea.rotate(c3.copy(), 1, sk), want.rotate(1))
+    caps_rotate = counts["rotate1"]["captures"]
     run("rotate41", lambda: ea.rotate(c3.copy(), 41, sk), want.rotate(41))
     run("shift_1d", lambda: ea.shift_1d(c3.copy(), 2, 1, sk),
         _shift_1d(want, 2, 1))
@@ -1205,7 +1294,7 @@ def slot_path(dev, card: str, perop_host) -> dict:
     saved = ea._mask_cache
     ea._mask_cache = {k: v for k, v in saved.items()
                       if isinstance(v, np.ndarray)}
-    with swap(convmod, "conv_aux", convmod.conv_aux_plain):
+    with plain(convmod, "conv_aux", convmod.conv_aux_plain):
         reset_launches()
         ref = ea.rotate(c3.copy(), 1, sk)
         torch.cuda.synchronize()
@@ -1231,8 +1320,10 @@ def slot_path(dev, card: str, perop_host) -> dict:
               f"{took[0]:.1f} s, mul {took[1]:.1f} s, rotate {took[2]:.1f} s "
               f"on {job.threads} threads, in a second process)")
 
-    profile(lambda: ea.rotate(c3.copy(), 1, sk), (),
-            "bgv slots m=31775 rotate by 1, warm")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    graphs_beside_eager("m=31775 warm rotate by 1",
+                        lambda: ea.rotate(c3.copy(), 1, sk), (), caps_rotate,
+                        card)
     row = kernel_row(lambda: ea.rotate(c3.copy(), 1, sk), (),
                      {"conv_aux": counts["rotate1"]["warm"]},
                      "conv_aux")
@@ -1240,7 +1331,7 @@ def slot_path(dev, card: str, perop_host) -> dict:
                       "setup_s": setup, "host_ms": host, "ms_per_op": ms,
                       "conv_aux_launches_per_op": counts,
                       "fat_masks_count_bytes": masks,
-                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+                      "peak_mem_gb": peak,
                       "conv_aux_row_rotate1": row, "card": card}))
     return row, (ctx, sk, pk, ea), host_check
 
@@ -1474,11 +1565,15 @@ def boot_path(ctx, sk, pk, ea, card: str, slots_host) -> dict:
     low = ea.encrypt(slots, pk, rng)
     low.bring_to_k(3)
 
+    from helib_tpu_torch import jitutil
     reset_launches()
+    caps = jitutil.captures
     out, h, e = timed(lambda: rec.thin_recrypt(low, rc, sk))
+    caps = jitutil.captures - caps
     c = read_launches()
     expect_only(c, "conv_aux", "boot cold")
     cold = {"host_ms": h, "event_ms": e, "conv_aux": c["conv_aux"],
+            "captures": caps,
             "capacity": boot_check("cold", ea, sk, low, out, slots, sk)}
     minted = len(sk.matrices)
     slots_host()
@@ -1491,28 +1586,47 @@ def boot_path(ctx, sk, pk, ea, card: str, slots_host) -> dict:
             "device_constants_count_bytes": (
                 len(fats), sum(f._full.numel() * 4 for f in fats
                                if f._full is not None))}
-    # a warm run with the PubKey, timed per stage and sampled for K3's row
-    marks, smp = stage_marks(rec, rc), sampling("conv_aux")
+    # a warm run with the PubKey, timed per stage
+    marks = stage_marks(rec, rc)
     reset_launches()
-    with marks, smp:
+    with marks:
         out_warm, h, e = timed(lambda: rec.thin_recrypt(low, rc, pk))
     c = read_launches()
     expect_only(c, "conv_aux", "boot warm (PubKey)")
     warm = {"host_ms": h, "event_ms": e, "conv_aux": c["conv_aux"],
             "capacity": boot_check("warm (PubKey)", ea, sk, low, out_warm,
                                    slots, pk)}
-    row = smp.row(c["conv_aux"])
     stages = marks.ms()
-    # and one under the profiler: the device's busy share
-    held = []
+    # the same under disable_jit(), sampled for K3's row
+    smp = sampling("conv_aux")
     reset_launches()
-    prof = profile(lambda: held.append(rec.thin_recrypt(low, rc, pk)), (),
-                   "bgv thin bootstrap m=31775, warm", warmup=False)
-    expect_only(read_launches(), "conv_aux", "boot warm (profiled)")
-    same_parts(out_warm, held[0], "boot: the profiled run != the timed run")
+    with smp:
+        out_eager, eh, ee = timed(lambda: rec.thin_recrypt(low, rc, pk))
+    if read_launches() != c:
+        raise AssertionError(f"boot: the eager run launched "
+                             f"{read_launches()}, the graphs' run {c}")
+    same_outputs(out_warm, out_eager, "boot warm")
+    row = smp.row(c["conv_aux"])
+    del out_eager
+    # and each under the profiler: the device's busy share
+    profs = {}
+    for eager in (False, True):
+        held = []
+        reset_launches()
+        with jitutil.disable_jit() if eager else contextlib.nullcontext():
+            profs[eager] = profile(
+                lambda: held.append(rec.thin_recrypt(low, rc, pk)), (),
+                f"bgv thin bootstrap m=31775, warm, "
+                f"{'eager' if eager else 'graphs'}", warmup=False)
+        expect_only(read_launches(), "conv_aux", "boot warm (profiled)")
+        same_parts(out_warm, held[0], "boot: the profiled run != the timed "
+                   "run")
+        del held
+    prof = profs[False]
     warm.update(profiled_ms=prof["wall_ms"], busy_share=prof["busy_share"],
                 launches=prof["launches"])
-    del held
+    graph_row("m=31775 warm thin bootstrap", mode_numbers(h, e, prof),
+              mode_numbers(eh, ee, profs[True]), caps, card)
     if len(sk.matrices) != minted:
         raise AssertionError("boot: the PubKey runs minted a matrix")
     print(f"boot: cold {json.dumps(cold)}; {minted} matrices minted "
@@ -1522,12 +1636,13 @@ def boot_path(ctx, sk, pk, ea, card: str, slots_host) -> dict:
     print("boot: host ms per stage " + ", ".join(
         f"{k} {v:.1f}" for k, v in stages.items()))
 
-    # one warm bootstrap with the plain K3 (graph-replayed), its diagonals
-    # rebuilt plain too
+    # one warm bootstrap with the plain K3, its diagonals rebuilt plain
+    # too; the sites capture the plain chain as graphs of their own (keyed
+    # by the swapped-in function), so each plain transform is one replay
     peak = torch.cuda.max_memory_allocated() / 2**30
-    plain = graphed(convmod.conv_aux_plain)
     t0 = time.time()
-    with swap(convmod, "conv_aux", plain), plain_fats(fats):
+    caps = jitutil.captures
+    with swap(convmod, "conv_aux", convmod.conv_aux_plain), plain_fats(fats):
         reset_launches()
         ref = rec.thin_recrypt(low, rc, pk)
         torch.cuda.synchronize()
@@ -1535,9 +1650,10 @@ def boot_path(ctx, sk, pk, ea, card: str, slots_host) -> dict:
             raise AssertionError("reference run launched a kernel")
     same_parts(out_warm, ref, "boot: kernel path != plain path")
     print(f"boot: warm bootstrap bit-identical to the plain-K3 chain "
-          f"({len(fats)} device constants rebuilt plain; {len(plain.graphs)} "
-          f"graphs; {time.time() - t0:.1f} s)")
-    del plain, ref
+          f"({len(fats)} device constants rebuilt plain; "
+          f"{jitutil.captures - caps} graphs of the plain chain; "
+          f"{time.time() - t0:.1f} s)")
+    del ref
     gc.collect()
     torch.cuda.empty_cache()
     print(json.dumps({"metric": "torch_cuda_bgv_thinboot_m31775_b600",
@@ -1576,6 +1692,7 @@ def tiny_boot_path(dev, card: str) -> dict:
     from helib_tpu_torch.context import Context
     from helib_tpu_torch.ea import EncryptedArray
     from helib_tpu_torch.keys import SecKey, PubKey
+    from helib_tpu_torch import jitutil
 
     res = {}
 
@@ -1599,22 +1716,32 @@ def tiny_boot_path(dev, card: str) -> dict:
         low.bring_to_k(3)
         fn = rec.fat_recrypt if fat else rec.thin_recrypt
         smp = sampling("conv_aux")
-        for which, key in (("cold", sk), ("warm", pk)):
+        # cold and warm with the graphs; the thin one warm again under
+        # disable_jit(), sampled for K3's row
+        runs = (("cold", sk), ("warm", pk)) + (() if fat else (
+            ("eager", pk),))
+        for which, key in runs:
             n = len(sk.matrices)
             reset_launches()
-            # K3's row rides on the thin warm run
-            rides = which == "warm" and not fat
-            with smp if rides else contextlib.nullcontext():
+            caps = jitutil.captures
+            with smp if which == "eager" else contextlib.nullcontext():
                 out, h, e = timed(lambda: fn(low, rc, key))
             c = read_launches()
             expect_only(c, "conv_aux", f"boot m=1271 {name} {which}")
-            if which == "warm" and len(sk.matrices) != n:
+            if which != "cold" and len(sk.matrices) != n:
                 raise AssertionError(f"boot m=1271 {name}: the PubKey run "
                                      f"minted")
             cap = boot_check(f"m=1271 {name} {which}", ea, sk, low, out,
                              slots, key, fat)
             r[which] = {"host_ms": h, "event_ms": e,
-                        "conv_aux": c["conv_aux"], "capacity": cap}
+                        "conv_aux": c["conv_aux"], "capacity": cap,
+                        "captures": jitutil.captures - caps}
+            if which == "eager":
+                same_outputs(warm_out, out, f"boot m=1271 {name} warm")
+                if c["conv_aux"] != r["warm"]["conv_aux"]:
+                    raise AssertionError(f"boot m=1271 {name}: the eager "
+                                         f"run launched {c}")
+            warm_out = out
         r["matrices_minted"] = len(sk.matrices)
         print(f"boot m=1271 {name}: {rc!r}; {json.dumps(r)}; decrypts "
               f"exactly, capacity {low.capacity():.1f} -> "
@@ -1623,7 +1750,7 @@ def tiny_boot_path(dev, card: str) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     rc, sk, low, out, smp = drive(fat=False)
-    row = smp.row(res["thin"]["warm"]["conv_aux"])
+    row = smp.row(res["thin"]["eager"]["conv_aux"])
     # the warm thin bootstrap on the host CPU, in a second process while
     # the fat one runs on the card
     job = on_host(_thin_boot_host, keys_arrays(sk),
@@ -1670,11 +1797,16 @@ CKKS_MM_SEED, CKKS_MM_DATA_SEED = 161, 163
 CKKS_MM_RAW_TOL = 1e-2
 
 
+# the circuits run again under disable_jit() (sampled for K3's row), the
+# 8-bit add among them for the graphs' block
+EAGER_OPS = ("add_two_numbers 8+8", "compare_two_numbers 8", "permutation")
+
+
 class sampling:
     """Context manager keeping a uniform sample of at most ROW_SAMPLES of
     the inputs kernel `name` gets while it is open (reservoir sampling from
-    a fixed seed) and the count of its calls; `.row(launches)` is the
-    kernel's row on them."""
+    a fixed seed) and the count of its calls, every site eager while it is
+    open; `.row(launches)` is the kernel's row on them."""
 
     def __init__(self, name: str):
         self.name = name
@@ -1694,7 +1826,7 @@ class sampling:
                 if j < ROW_SAMPLES:
                     self.kept[j] = args
             return orig(*args)
-        self.sw = swap(self.mod, self.attr, rec)
+        self.sw = swap(self.mod, self.attr, rec, eager=True)
         self.sw.__enter__()
         return self
 
@@ -1711,36 +1843,6 @@ class sampling:
                 "sampled_inputs": len(self.kept),
                 "shapes": sorted({str(tuple(a[0].shape))
                                   for a in self.kept})}
-
-
-class graphed:
-    """A plain version fn(x, *tables) run as one replay of a CUDA graph of
-    its kernels, captured on first use for each shape of x and each set of
-    tables (held, so no other object takes their ids): its hundreds of
-    launches a call become one.  The same kernels on the same inputs, so
-    the same residues."""
-
-    def __init__(self, fn):
-        self.fn, self.graphs = fn, {}
-
-    def __call__(self, x, *tables):
-        key = (tuple(x.shape),) + tuple(
-            a if isinstance(a, (bool, int)) else id(a) for a in tables)
-        if key not in self.graphs:
-            xin = x.contiguous().clone()
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                self.fn(xin, *tables)
-            torch.cuda.current_stream().wait_stream(side)
-            g = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(g):
-                out = self.fn(xin, *tables)
-            self.graphs[key] = (g, xin, out, tables)
-        g, xin, out, _ = self.graphs[key]
-        xin.copy_(x)
-        g.replay()
-        return out.clone()
 
 
 def matmul1d_oracle(pal, dim: int, M, v, p: int) -> np.ndarray:
@@ -1770,6 +1872,7 @@ def circuits_path(dev, card: str) -> dict:
     from helib_tpu_torch.ea import EncryptedArray
     from helib_tpu_torch.keys import SecKey, PubKey
     from helib_tpu_torch.ops import conv as convmod
+    from helib_tpu_torch import jitutil
 
     torch.cuda.reset_peak_memory_stats()
     setup = {}
@@ -1883,24 +1986,36 @@ def circuits_path(dev, card: str) -> dict:
     smp = sampling("conv_aux")
     for name, (f, (dec, want)) in ops.items():
         reset_launches()
+        caps = jitutil.captures
         out, cold_h, cold_e = timed(f)
+        caps = jitutil.captures - caps
         c = read_launches()
         expect_only(c, "conv_aux", f"circuits {name}")
         if not np.array_equal(dec(out), want):
             raise AssertionError(f"circuits {name}: decrypt != numpy")
-        with smp:
-            reset_launches()
-            _, warm_h, warm_e = timed(f)
-            cw = read_launches()
+        reset_launches()
+        warm, warm_h, warm_e = timed(f)
+        cw = read_launches()
         expect_only(cw, "conv_aux", f"circuits {name} warm")
+        res[name] = {"cold_host_ms": cold_h, "cold_event_ms": cold_e,
+                     "warm_host_ms": warm_h, "warm_event_ms": warm_e}
+        if name in EAGER_OPS:
+            # warm again under disable_jit(), sampled for K3's row
+            with smp:
+                reset_launches()
+                eager, eager_h, eager_e = timed(f)
+                ce = read_launches()
+            if ce != cw:
+                raise AssertionError(f"circuits {name}: the eager run "
+                                     f"launched {ce}, the graphs' run {cw}")
+            same_outputs(warm, eager, f"circuits {name}")
+            warm_total += ce["conv_aux"]
+            res[name].update(eager_host_ms=eager_h, eager_event_ms=eager_e)
         total += c["conv_aux"]
-        warm_total += cw["conv_aux"]
         cts = out if isinstance(out, list) else [out]
         outs[name] = out
-        res[name] = {"cold_host_ms": cold_h, "cold_event_ms": cold_e,
-                     "warm_host_ms": warm_h, "warm_event_ms": warm_e,
-                     "conv_aux": c["conv_aux"],
-                     "capacity": min(x.capacity() for x in cts)}
+        res[name].update(conv_aux=c["conv_aux"], captures=caps,
+                         capacity=min(x.capacity() for x in cts))
         print(f"circuits: {name} {json.dumps(res[name])}")
     # repack of the unpacked ciphertexts
     parts = outs["unpack"]
@@ -1918,12 +2033,13 @@ def circuits_path(dev, card: str) -> dict:
         raise AssertionError("circuits: a matrix was minted during the ops")
     print(f"circuits: every op and repack decrypted to numpy in all {n} "
           f"slots through K3 alone ({total} launches), no matrix minted")
-    busy = profile(ops["add_two_numbers 8+8"][0], (),
-                   "circuits m=4095 add_two_numbers 8+8, warm", top=5,
-                   warmup=False)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    busy = graphs_beside_eager(
+        "m=4095 warm 8-bit add", ops["add_two_numbers 8+8"][0], (),
+        res["add_two_numbers 8+8"]["captures"], card)
 
     # the permutation with the plain K3
-    with swap(convmod, "conv_aux", convmod.conv_aux_plain):
+    with plain(convmod, "conv_aux", convmod.conv_aux_plain):
         reset_launches()
         ref = pp.apply(cbits, pk)
         torch.cuda.synchronize()
@@ -1960,7 +2076,7 @@ def circuits_path(dev, card: str) -> dict:
                                   "matrices": minted - before},
                       "matrices_minted": minted,
                       "conv_aux_row_warm_ops": row,
-                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+                      "peak_mem_gb": peak,
                       "card": card}))
     return row, (ctx, sk, pk, ea)
 
@@ -1975,6 +2091,7 @@ def matmul_ckks_path(dev, card: str) -> dict:
     from helib_tpu_torch.keys import SecKey, PubKey, SKHandle
     from helib_tpu_torch.nt.numbth import inv_mod
     from helib_tpu_torch.ops import ntt_fused
+    from helib_tpu_torch import jitutil
 
     torch.cuda.reset_peak_memory_stats()
     setup = {}
@@ -2001,7 +2118,8 @@ def matmul_ckks_path(dev, card: str) -> dict:
           f"default_rng({CKKS_MM_DATA_SEED}); {minted} rotation matrices "
           f"minted first; setup {json.dumps(setup)}")
 
-    # the diagonals and encodes, recorded for the plain-K2 rerun
+    # the diagonals and encodes, recorded for the graphs' and the plain-K2
+    # reruns
     diags, encodes = [], []
 
     def recorded(fn, into, keep=lambda v: v):
@@ -2044,25 +2162,47 @@ def matmul_ckks_path(dev, card: str) -> dict:
           f"without the decrypt's mitigation noise {raw_err:.3e}, within "
           f"{CKKS_MM_RAW_TOL})")
 
-    # the same apply with the plain K2 (graph-replayed), the diagonals and
-    # encodes replayed in order
+    def replayed():
+        """The apply with the diagonals and encodes replayed in order: the
+        device's part and its launches alone."""
+        next_diag, next_encode = iter(diags).__next__, iter(encodes).__next__
+        with swap(mm, "_diag", lambda *a, **kw: next_diag()), swap(
+                ea, "encode", lambda *a, **kw: next_encode()):
+            return mm.apply(ct, pk, bsgs=True)
+
+    # the same apply with the graphs (the run above was under disable_jit()
+    # for the sample), its first: each transform's graph captured then
     peak = torch.cuda.max_memory_allocated() / 2**30
-    next_diag, next_encode = iter(diags).__next__, iter(encodes).__next__
-    plain = graphed(ntt_fused.ntt_plain)
-    with swap(ntt_fused, "ntt", plain), swap(
-            mm, "_diag", lambda *a, **kw: next_diag()), swap(
-            ea, "encode", lambda *a, **kw: next_encode()):
+    reset_launches()
+    caps = jitutil.captures
+    graphed, gh, ge = timed(replayed)
+    split["graphs_device_and_launch_ms"] = gh
+    split["graphs_event_ms"] = ge
+    split["graphs_captured"] = jitutil.captures - caps
+    if read_launches() != c:
+        raise AssertionError(f"matmul_ckks: the graphs' run launched "
+                             f"{read_launches()}, the eager one {c}")
+    same_outputs(graphed, out, "matmul_ckks")
+    print(f"matmul_ckks: the apply with the graphs (diagonals and encodes "
+          f"replayed) {gh:.1f} ms, {split['graphs_captured']} graphs "
+          f"captured; bit-identical to the eager apply")
+    del graphed
+
+    # the same apply with the plain K2, the diagonals and encodes replayed;
+    # the sites capture the plain chain as graphs of their own
+    caps = jitutil.captures
+    with swap(ntt_fused, "ntt", ntt_fused.ntt_plain):
         reset_launches()
         t0 = time.time()
-        ref = mm.apply(ct, pk, bsgs=True)
+        ref = replayed()
         torch.cuda.synchronize()
         plain_s = time.time() - t0
         if any(read_launches().values()):
             raise AssertionError("reference run launched a kernel")
     same_parts(out, ref, "matmul_ckks: kernel path != plain path")
     print(f"matmul_ckks: bit-identical to the plain-K2 chain ({plain_s:.1f} "
-          f"s, {len(plain.graphs)} graphs)")
-    del diags, encodes, plain, ref
+          f"s, {jitutil.captures - caps} graphs of the plain chain)")
+    del diags, encodes, ref
     row = smp.row(c["ntt"])
     print(json.dumps({"metric": "torch_cuda_ckks_matmul_m16384_b360",
                       "setup_s": setup, "ms": split, "ntt": c["ntt"],
@@ -2462,10 +2602,12 @@ def timing(fn, args, iters: int = 10) -> dict:
             "ms_per_unbatched_call": out["unbatched"][1]}
 
 
-def kernel_times(fn, args) -> tuple[list, float]:
+def kernel_times(fn, args) -> tuple[list, float, int]:
     """One call of fn(*args) under torch.profiler (the card's activity
-    alone): [(kernel name, launches, ms)] longest first, and the call's
-    wall seconds."""
+    alone): [(kernel name, launches, ms)] longest first, the call's wall
+    seconds, and the launches the host issued: the distinct correlation ids
+    of the card's activity (the kernels, copies and fills of one CUDA-graph
+    replay share its launch's)."""
     from torch.profiler import profile as prof, ProfilerActivity
     torch.cuda.synchronize()
     with prof(activities=[ProfilerActivity.CUDA]) as p:
@@ -2475,13 +2617,15 @@ def kernel_times(fn, args) -> tuple[list, float]:
         wall = time.time() - t0
     cuda = torch.autograd.DeviceType.CUDA
     by_name: dict = {}
+    issued = set()
     for e in p.profiler.kineto_results.events():
         if e.device_type() == cuda and e.duration_ns() > 0:
             count, ns = by_name.get(e.name(), (0, 0))
             by_name[e.name()] = (count + 1, ns + e.duration_ns())
+            issued.add(e.correlation_id())
     rows = sorted(((k, c, ns / 1e6) for k, (c, ns) in by_name.items()),
                   key=lambda r: -r[2])
-    return rows, wall
+    return rows, wall, len(issued)
 
 
 def profile(fn, args, label: str, top: int = 10, warmup: bool = True):
@@ -2492,16 +2636,18 @@ def profile(fn, args, label: str, top: int = 10, warmup: bool = True):
     over a bootstrap's ~4e5 launches."""
     if warmup:
         fn(*args)
-    rows, wall = kernel_times(fn, args)
+    rows, wall, issued = kernel_times(fn, args)
     busy = sum(r[2] for r in rows)
     launches = sum(r[1] for r in rows)
     print(f"profile ({label}): one call {wall * 1e3:.3f} ms wall, device "
           f"busy {busy:.3f} ms ({100 * busy / (wall * 1e3):.1f} %), "
-          f"{launches} kernel launches")
+          f"{launches} kernels and copies on the card, {issued} launches "
+          f"from the host")
     for key, count, ms in rows[:top]:
         print(f"  {ms:9.3f} ms {count:5d}x  {key[:90]}")
     return {"wall_ms": wall * 1e3, "busy_ms": busy,
-            "busy_share": busy / (wall * 1e3), "launches": launches}
+            "busy_share": busy / (wall * 1e3), "launches": launches,
+            "issued": issued, "rows": rows}
 
 
 def kernel_table() -> dict:
@@ -2577,6 +2723,107 @@ def row_on(calls, launches: int, name: str) -> dict:
             "bound_ms": max(bb, bo) / n,
             "bound_by": "bytes" if bb >= bo else "operations",
             "library_ms": None}
+
+
+# the six paths read with their graphs and under disable_jit(), printed
+# together at the end
+GRAPH_ROWS: list = []
+
+
+def flat_tensors(x) -> list:
+    """The tensors of an output: a tensor, a Ctxt's parts, nested
+    sequences of them."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if hasattr(x, "parts"):
+        return [d for _, d in x.parts]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in flat_tensors(v)]
+    return []
+
+
+def same_outputs(a, b, what: str):
+    ta, tb = flat_tensors(a), flat_tensors(b)
+    if not ta or len(ta) != len(tb) or not all(
+            torch.equal(x, y) for x, y in zip(ta, tb)):
+        raise AssertionError(f"{what}: the graphed call != the same call "
+                             f"under disable_jit()")
+
+
+def in_mode(fn, args, label: str, eager: bool) -> tuple:
+    """fn(*args), warm, with its graphs or under disable_jit(): one call
+    timed (host and CUDA-event ms) and one under the profiler (the
+    launches the host issued, the kernels and copies on the card, device
+    ms and busy share), the peak memory of the two; (those numbers, the
+    timed call's outputs).  With the graphs, one call before them, so
+    every graph is captured and has been replayed once."""
+    from helib_tpu_torch.jitutil import disable_jit
+    if not eager:
+        fn(*args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with disable_jit() if eager else contextlib.nullcontext():
+        out, h, e = timed(lambda: fn(*args))
+        p = profile(fn, args, f"{label}, {'eager' if eager else 'graphs'}",
+                    top=3, warmup=False)
+    return mode_numbers(h, e, p), out
+
+
+def mode_numbers(host_ms: float, event_ms: float, prof: dict) -> dict:
+    """One mode's numbers from a timed call and a profiled one; the kernels
+    of ops/csrc are counted by name (a replay's kernel nodes must be
+    reported as the eager launches are)."""
+    ours = sum(c for name, c, _ in prof["rows"] if "ntt_rows_kernel" in name)
+    return {"host_ms": host_ms, "event_ms": event_ms,
+            "issued": prof["issued"], "kernels": prof["launches"],
+            "ntt_rows_kernels": ours, "device_ms": prof["busy_ms"],
+            "busy_share": prof["busy_share"], "profiled_ms": prof["wall_ms"],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def graph_row(label: str, graphs: dict, eager: dict, captures: int,
+              card: str, **extra) -> dict:
+    """Records one path's numbers with its graphs and under disable_jit(),
+    the graphs its first (cold) call captured and the bytes the shared
+    graph pool holds."""
+    from helib_tpu_torch import jitutil
+    # a replay's kernel nodes are reported under their own names (the
+    # profiler may drop an event now and then, so the counts are printed,
+    # not compared)
+    if eager["ntt_rows_kernels"] and not graphs["ntt_rows_kernels"]:
+        raise AssertionError(f"{label}: the profiler saw no kernel of "
+                             f"ops/csrc in the graphs' call")
+    row = {"path": label, "graphs": graphs, "eager": eager,
+           "captures": captures,
+           "pool_bytes": jitutil.pool_bytes(torch.device("cuda")),
+           "all_captures": jitutil.captures, "warmup_s": jitutil.warmup_s,
+           "capture_s": jitutil.capture_s, **extra}
+    GRAPH_ROWS.append(row)
+    print(json.dumps({"metric": "torch_cuda_graphs_beside_eager", **row,
+                      "card": card}))
+    return row
+
+
+def graphs_beside_eager(label: str, fn, args, captures: int, card: str,
+                        **extra) -> dict:
+    """graph_row of fn(*args) read in both modes, whose outputs must be
+    equal bit for bit."""
+    g, out = in_mode(fn, args, label, eager=False)
+    e, ref = in_mode(fn, args, label, eager=True)
+    same_outputs(out, ref, label)
+    return graph_row(label, g, e, captures, card, **extra)
+
+
+def batched_row(label: str, fn, args, captures: int, card: str) -> dict:
+    """graphs_beside_eager of a batched lifted_jit path, with its ops/s in
+    both modes (timing)."""
+    from helib_tpu_torch.jitutil import disable_jit
+    g = timing(fn, args)
+    with disable_jit():
+        e = timing(fn, args)
+    return graphs_beside_eager(
+        label, fn, args, captures, card,
+        ops_per_s={"graphs": g["ops_per_s"], "eager": e["ops_per_s"]})
 
 
 def measure(fn, args, launches, name: str, metric: str, label: str,
@@ -2951,7 +3198,7 @@ def solo_device_ms(fn, args, gathered: list) -> float:
         if dist.get_rank() == r:
             it = iter(gathered)
             with swap(LimbShard, "gather", lambda self, s, e, x: next(it)):
-                rows, _ = kernel_times(fn, args)
+                rows = kernel_times(fn, args)[0]
             ms = sum(row[2] for row in rows)
     dist.barrier()
     return ms
@@ -2978,7 +3225,7 @@ def solo_op(fn, args, warmup: bool = True, profiled: bool = True) -> tuple:
         stats = {"host_ms": (time.time() - t0) * 1e3,
                  "event_ms": a.elapsed_time(b)}
         if profiled:
-            rows, _ = kernel_times(fn, args)
+            rows = kernel_times(fn, args)[0]
             stats["device_ms"] = sum(r[2] for r in rows)
     dist.barrier()
     return out, stats
@@ -3357,6 +3604,31 @@ def parallel_and_examples(card: str, phase4: list, start: float) -> None:
           f"start-up")
 
 
+def print_graph_rows() -> None:
+    """The block of the six paths, each with its CUDA graphs and under
+    disable_jit(): launches the host issued a call (a replay is one, each
+    copy one), device ms and busy share, host ms (ops/s at batch 16), the
+    graphs its cold call captured, the shared pool's bytes."""
+    if len(GRAPH_ROWS) != 6:
+        raise AssertionError(f"{len(GRAPH_ROWS)} of the six graph rows")
+    print("graphs: path: graphs | disable_jit()")
+    for row in GRAPH_ROWS:
+        g, e = row["graphs"], row["eager"]
+        ops = row.get("ops_per_s")
+        rate = (f"; ops/s {ops['graphs']:.1f} | {ops['eager']:.1f}"
+                if ops else "")
+        print(f"graphs: {row['path']}: launches {g['issued']} | "
+              f"{e['issued']}; device ms {g['device_ms']:.3f} | "
+              f"{e['device_ms']:.3f}; busy {100 * g['busy_share']:.1f} % | "
+              f"{100 * e['busy_share']:.1f} %; host ms {g['host_ms']:.3f} | "
+              f"{e['host_ms']:.3f}{rate}; captured {row['captures']}; pool "
+              f"{row['pool_bytes'] / 2**20:.1f} MiB")
+    from helib_tpu_torch import jitutil
+    print(f"graphs: {jitutil.captures} captured in all, {jitutil.replays} "
+          f"replays; host s in warm-up calls {jitutil.warmup_s:.1f}, in "
+          f"captures {jitutil.capture_s:.1f}")
+
+
 def ptxas_summary(log: str) -> list:
     """One line per kernel of nvcc's -Xptxas -v report: name and template
     arguments, registers, stack frame and spills."""
@@ -3437,6 +3709,7 @@ def main(argv=None) -> int:
           f"max |err| = {err})")
 
     fn, args, launches, phase4 = main_path(dev)
+    captures = fn.captures
     if only:
         del fn, args
         parallel_and_examples(card, phase4, start)
@@ -3453,11 +3726,18 @@ def main(argv=None) -> int:
     kernels["conv2"] = v2_path(
         fn, args, "conv2", "conv", "bgv",
         "torch_cuda_mult_relin_v2_ops_per_s_m8009_b380_batch16", card)
+    row = batched_row("BGV m=8009 batch 16", fn, args, captures, card)
+    # one replay and its copies (4 in, 2 out): the most the host issues a
+    # call
+    if not 1 <= row["graphs"]["issued"] <= 1 + len(args) + 2:
+        raise AssertionError(f"main path: the host issued "
+                             f"{row['graphs']['issued']} launches a call")
     del fn, args
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
     fn, args, launches, ctx, sk = ckks_path(dev)
+    captures = fn.captures
     kernels["ntt"] = measure(
         fn, args, launches, "ntt",
         "torch_cuda_ckks_mult_relin_ops_per_s_m65536_b440_batch16", "ckks",
@@ -3471,6 +3751,7 @@ def main(argv=None) -> int:
     kernels["ntt2"] = v2_path(
         fn, args, "ntt2", "ntt", "ckks",
         "torch_cuda_ckks_mult_relin_v2_ops_per_s_m65536_b440_batch16", card)
+    batched_row("CKKS m=65536 batch 16", fn, args, captures, card)
     del fn, args
     torch.cuda.empty_cache()
     rotation_path(ctx, sk, card)
@@ -3521,6 +3802,7 @@ def main(argv=None) -> int:
                              f"sharded transforms")
     print("chip_smoke: phases 1-17 ran 0 sharded transforms")
     parallel_and_examples(card, phase4, start)
+    print_graph_rows()
     print(card)
     order = ("conv", "ntt", "conv_aux", "ntt2", "conv2", "p1", "p2")
     print(json.dumps({"kernels": [kernels[k] for k in order]}))

@@ -4,11 +4,13 @@
 Same parameters, prime chain, digit partition and noise helpers as
 helib_tpu's Context, for BGV and CKKS, with the tables on an explicit torch
 `device`.  The device defaults to "cuda"; on a host without a GPU the
-constructor raises unless the caller asks for device="cpu".  There is no jit
-cache: PyTorch runs eagerly, so `fwd_ntt`/`inv_ntt` call the transform
-directly -- the fused power-of-2 NTT (ops/ntt_fused.py) for power-of-2 m,
+constructor raises unless the caller asks for device="cpu".  `fwd_ntt` and
+`inv_ntt` run the fused power-of-2 NTT (ops/ntt_fused.py) for power-of-2 m,
 the Bluestein DFT (ops/ntt.py, its convolution in ops/conv.py) for odd m,
-whose spectral kernels are transformed on the context's device.
+whose spectral kernels are transformed on the context's device.  As in
+helib_tpu, each (rows, direction) is one compiled program (`jit_call`,
+jitutil.py): on the card one CUDA-graph replay a transform, on the host the
+eager composition.
 """
 
 from __future__ import annotations
@@ -119,6 +121,7 @@ class Context:
             self.ntt_inv = BluesteinTables(self.all_q, self.m, True,
                                            self.device)
         self._cache: dict = {}
+        self._jits: dict = {}
 
     def cached(self, key, build):
         """Per-context memo of derived constants (tables, digit constants)."""
@@ -279,7 +282,26 @@ class Context:
     def disable_sharded_transforms(self):
         self._sharded_ntt = None
 
+    def jit_call(self, key, builder, *args, cache: dict | None = None):
+        """helib_tpu's jit sites (Context._ntt_call, dcrt._jit_call): the
+        run of builder() for the static configuration `key`, cached in
+        `cache` (this context's by default), called on args
+        (jitutil.jit_call).  Eager while the sharded transforms are on:
+        their gathers go through gloo, which a graph cannot hold."""
+        if getattr(self, "_sharded_ntt", None) is not None:
+            return builder()(*args)
+        from .jitutil import jit_call
+        return jit_call(self._jits if cache is None else cache, key, builder,
+                        *args)
+
     def _transform(self, x, rows: tuple, inverse: bool):
+        """One compiled program a (rows, direction), as helib_tpu's
+        Context._ntt_call."""
+        return self.jit_call(("ntt", rows, inverse),
+                             lambda: lambda v: self._transform_impl(
+                                 v, rows, inverse), x)
+
+    def _transform_impl(self, x, rows: tuple, inverse: bool):
         t = self.ntt_tree(rows)["inv" if inverse else "fwd"]
         if self.pal.pow2:
             if x.shape[-1] > STAGED_ABOVE:

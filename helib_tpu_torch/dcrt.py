@@ -10,6 +10,10 @@ power-of-2 m.  Leading dims are a batch: every op broadcasts over them.
   * `rt_add_special_and_scale`: scale by P with zero special rows;
   * `rt_break_into_digits`: mixed-radix digits with balanced basis extension.
 
+The digit decomposition and the scaled mod-down are helib_tpu's jit sites:
+one compiled program a configuration (Context.jit_call; on the card a
+CUDA-graph replay a call).
+
 The float64 lifts sum their terms left to right in an explicit loop.  XLA:CPU
 contracts the same sum into fused multiply-adds, so the float sums can differ
 in the last bit; the integer lifts taken from them agree except when a sum
@@ -315,6 +319,20 @@ def _drop_consts(ctx: Context, drop_rows: tuple, target_rows: tuple,
 def rt_scale_down(ctx: Context, data, k: int, special: bool,
                   new_k: int, new_special: bool, ptxt_space: int,
                   want_frac: bool = False, own=None):
+    """One compiled program a configuration (helib_tpu's dcrt.rt_scale_down
+    jit site, Context.jit_call) of `_rt_scale_down`; the measured-noise
+    read of the remainder stays with the caller."""
+    return ctx.jit_call(
+        ("scale_down", k, special, new_k, new_special, ptxt_space, want_frac,
+         own),
+        lambda: lambda v: _rt_scale_down(ctx, v, k, special, new_k,
+                                         new_special, ptxt_space, want_frac,
+                                         own), data)
+
+
+def _rt_scale_down(ctx: Context, data, k: int, special: bool,
+                   new_k: int, new_special: bool, ptxt_space: int,
+                   want_frac: bool = False, own=None):
     """Scaled mod-down (reference Ctxt::modDownToSet, in pure RNS).
 
     data: [..., P, N] eval tensor on prime set (k, special).  Returns data'
@@ -451,10 +469,43 @@ def rt_break_into_digits(ctx: Context, data, k: int, own=None, gather=None):
     the specials alone."""
     if own is None:
         consts = ctx.cached(("digits", k), lambda: _digit_consts(ctx, k))
-        lo, n_own = 0, k
+        # one compiled program a level (helib_tpu's dcrt.rt_break_into_digits
+        # jit site, Context.jit_call); the noise bound and the fhe_stats
+        # measurement stay outside it, as there
+        digits = list(ctx.jit_call(
+            ("digits", k), lambda: lambda v: tuple(
+                _digits(ctx, v, k, consts, None, None)), data))
     else:
         consts = ctx.cached(("digits", k, own),
                             lambda: _digit_consts_rows(ctx, k, own))
+        digits = _digits(ctx, data, k, consts, own, gather)
+    noise = log2_sum([ctx.noise_uniform(cst["log2_D"] - 1.0)
+                      for cst in consts])
+    from . import timing
+    if timing.fhe_stats and own is None:
+        # noise-model validation: measured canonical-embedding norm of each
+        # digit vs the bound charged to the noise estimate (reference
+        # HELIB_STATS_UPDATE("break-into-digits-ratio"), DoubleCRT.cpp:548)
+        from .norms import embedding_largest_coeff_log2
+        held = ctx.rows_of(k, True)
+        for dj, cst in zip(digits, consts):
+            res = to_host(rt_to_coeff_residues(ctx, dj, k, True))
+            if res.ndim > 2:          # batched: measure the first element
+                res = res.reshape(-1, *res.shape[-2:])[0]
+            coeffs = crt_reconstruct(ctx, res, held)
+            norm_log2 = embedding_largest_coeff_log2(coeffs, ctx.m,
+                                                     ctx.pal.pow2)
+            bound_log2 = ctx.noise_uniform(cst["log2_D"] - 1.0)
+            timing.stats_update("break-into-digits-ratio",
+                                2.0 ** (norm_log2 - bound_log2))
+    return digits, noise
+
+
+def _digits(ctx: Context, data, k: int, consts: list, own, gather) -> list:
+    """The digit recursion of rt_break_into_digits on its constants."""
+    if own is None:
+        lo, n_own = 0, k
+    else:
         lo, n_own = own[0], len(own)
     held = ctx.rows_of(k, True, own)
     t_q, _ = ctx.dev_q(k, True, own)
@@ -487,22 +538,4 @@ def rt_break_into_digits(ctx: Context, data, k: int, own=None, gather=None):
             cur_eval = mul_mod_shoup(
                 sub_mod(cur_eval, digit_eval[..., :n_own, :], live_q),
                 Dfinv, Dfinv_sh, live_q)
-    noise = log2_sum([ctx.noise_uniform(cst["log2_D"] - 1.0)
-                      for cst in consts])
-    from . import timing
-    if timing.fhe_stats and own is None:
-        # noise-model validation: measured canonical-embedding norm of each
-        # digit vs the bound charged to the noise estimate (reference
-        # HELIB_STATS_UPDATE("break-into-digits-ratio"), DoubleCRT.cpp:548)
-        from .norms import embedding_largest_coeff_log2
-        for dj, cst in zip(digits, consts):
-            res = to_host(rt_to_coeff_residues(ctx, dj, k, True))
-            if res.ndim > 2:          # batched: measure the first element
-                res = res.reshape(-1, *res.shape[-2:])[0]
-            coeffs = crt_reconstruct(ctx, res, held)
-            norm_log2 = embedding_largest_coeff_log2(coeffs, ctx.m,
-                                                     ctx.pal.pow2)
-            bound_log2 = ctx.noise_uniform(cst["log2_D"] - 1.0)
-            timing.stats_update("break-into-digits-ratio",
-                                2.0 ** (norm_log2 - bound_log2))
-    return digits, noise
+    return digits

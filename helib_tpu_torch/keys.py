@@ -203,20 +203,33 @@ class SecKey:
         ctx = self.ctx
         k, special = ctxt.k, ctxt.special
         rows = ctx.rows_of(k, special)
-        idx = dcrt._rows(ctx, rows)
-        acc = None
-        for h, data in ctxt.parts:
-            term = data
-            if not h.is_one:
-                s = self.key_full(h.keyID).index_select(-2, idx)
-                if h.powX != 1:
-                    s = rt_automorph(ctx, s, h.powX)
-                pw = s
-                for _ in range(h.powS - 1):
-                    pw = rt_mul(ctx, pw, s, k, special)
-                term = rt_mul(ctx, data, pw, k, special)
-            acc = term if acc is None else rt_add(ctx, acc, term, k, special)
-        return to_host(ctx.inv_ntt(acc, rows)), rows
+        handles = [h for h, _ in ctxt.parts]
+
+        def inner(*datas):
+            idx = dcrt._rows(ctx, rows)
+            acc = None
+            for h, data in zip(handles, datas):
+                term = data
+                if not h.is_one:
+                    s = self.key_full(h.keyID).index_select(-2, idx)
+                    if h.powX != 1:
+                        s = rt_automorph(ctx, s, h.powX)
+                    pw = s
+                    for _ in range(h.powS - 1):
+                        pw = rt_mul(ctx, pw, s, k, special)
+                    term = rt_mul(ctx, data, pw, k, special)
+                acc = (term if acc is None
+                       else rt_add(ctx, acc, term, k, special))
+            return ctx.inv_ntt(acc, rows)
+
+        # the inner product and its inverse transform as one compiled
+        # program a handle signature, as in helib_tpu; the CRT stays on the
+        # host
+        sig = (k, special,
+               tuple((h.keyID, h.powX, h.powS) for h in handles))
+        res = ctx.jit_call(sig, lambda: inner, *[d for _, d in ctxt.parts],
+                           cache=self.__dict__.setdefault("_jits", {}))
+        return to_host(res), rows
 
     def decrypt_raw(self, ctxt) -> np.ndarray:
         """<c, s-monomials> -> balanced integer coefficient vector (host)."""

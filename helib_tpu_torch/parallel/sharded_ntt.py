@@ -34,6 +34,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..context import resolve_device
 from ..ops.ntt import Pow2NTT, power_table, _stage_exponents
 from ..ops.modops import (add_mod, sub_mod, mul_mod_shoup, shoup, reduce_u32,
                           to_device)
@@ -52,12 +53,13 @@ class ShardedNTT:
     n: int
     negacyclic: bool
     A: int
-    device: torch.device | str = "cpu"
+    device: torch.device | str = "cuda"
     dev: dict = field(init=False)
     group: object = field(init=False, default=None)
     blocks: tuple = field(init=False)        # this rank's blocks [b0, b1)
 
     def __post_init__(self):
+        self.device = resolve_device(self.device)
         n, A = self.n, self.A
         assert_true(n % A == 0 and A & (A - 1) == 0,
                     'invariant: n % A == 0 and A & (A - 1) == 0')
@@ -228,7 +230,7 @@ def _default_shards(B: int) -> int:
     return min(8, max(2, world()[1]))
 
 
-def sharded_bluestein_ntt(bt, device="cpu") -> ShardedNTT:
+def sharded_bluestein_ntt(bt, device="cuda") -> ShardedNTT:
     """The phi(m)-axis four-step transform for the length-B auxiliary
     convolutions of a BluesteinTables instance (the large-m bootstrap
     transform: at m=31775 one forward DFT is three B=65536 convolutions a

@@ -5,10 +5,13 @@ card, against the plain torch versions and the port on the CPU; the sizes
 above the kernels' 2^16 (BGV m=35113, CKKS m=262144) on the staged
 transforms, and the command-line utilities on the card.  The twins of
 examples/01-10 run on the card, and the parallel layer's two-rank m=45
-pipelines run as two gloo ranks sharing it.  The thin bootstrap at m=35113
-and the whole multi-rank dry run (entry.dryrun_multichip on two ranks) run
-for minutes and are marked `cuda_long` as well (`-m "not cuda_long"` leaves
-them out).
+pipelines run as two gloo ranks sharing it.  Every jit site (transform,
+digit decomposition, scaled mod-down, decrypt's inner product) and a
+lifted pipeline run as CUDA graphs at m=31, 1271, 8009 and CKKS m=1024,
+held to the same calls under jitutil.disable_jit().  The thin bootstrap at
+m=35113 and the whole multi-rank dry run (entry.dryrun_multichip on two
+ranks) run for minutes and are marked `cuda_long` as well
+(`-m "not cuda_long"` leaves them out).
 
 Every test needs an NVIDIA GPU and skips without one.  The file imports no
 JAX, so it also runs where only PyTorch is installed (the conftest, which
@@ -648,3 +651,201 @@ def test_dryrun_multichip_two_ranks_on_gpu(gpu):
     from helib_tpu_torch.entry import dryrun_multichip
     from helib_tpu_torch.parallel.distributed import launch
     launch(dryrun_multichip, 2, 2, "cuda", backend="gloo", timeout=3000)
+
+
+# ---------------------------------------------------------------------------
+# compiled dispatch: the jit sites as CUDA graphs (jitutil)
+# ---------------------------------------------------------------------------
+
+GRAPH_SIZES = {
+    "m31": dict(m=31, p=2, r=1, bits=300, c=3),
+    "m1271": dict(m=1271, p=2, r=1, bits=120, c=3),
+    "m8009": dict(m=8009, p=2, r=1, bits=380, c=3),
+    "ckks1024": dict(m=1024, p=-1, r=35, bits=300, c=3, scheme="ckks"),
+}
+SITES = ["fwd", "inv", "digits", "scale_down", "decrypt", "pipeline"]
+_GRAPH_SETUPS: dict = {}
+
+
+def _graph_setup(size):
+    """(ctx, sk) of a size on the card, built once for the module."""
+    if size not in _GRAPH_SETUPS:
+        ctx = Context(**GRAPH_SIZES[size])
+        sk = SecKey(ctx, seed=3)
+        PubKey(sk)
+        _GRAPH_SETUPS[size] = (ctx, sk)
+    return _GRAPH_SETUPS[size]
+
+
+def _site(size, name):
+    """(call, inputs): a call of the named jit site and `inputs(seed)`, the
+    tensors it takes, uniform residues from default_rng(seed)."""
+    from helib_tpu_torch.ctxt import Ctxt
+    from helib_tpu_torch.dcrt import rt_break_into_digits, rt_scale_down
+    from helib_tpu_torch.jitutil import lifted_jit
+    from helib_tpu_torch.keys import SKHandle
+    ctx, sk = _graph_setup(size)
+    L, S = ctx.L, ctx.S
+    pr = ctx.ptxt_space if ctx.scheme == "bgv" else 1
+
+    def parts(k, special, count):
+        qs = ctx.primes_of(k, special).astype(np.int64)
+
+        def make(seed):
+            rng = np.random.default_rng(seed)
+            return tuple(to_device(rng.integers(0, qs[:, None], (
+                len(qs), ctx.n_eval)).astype(np.uint32), ctx.device)
+                for _ in range(count))
+        return make
+    rows = ctx.rows_of(L, False)
+    if name in ("fwd", "inv"):
+        f = ctx.fwd_ntt if name == "fwd" else ctx.inv_ntt
+        return (lambda x: f(x, rows)), parts(L, False, 1)
+    if name == "digits":
+        return (lambda x: rt_break_into_digits(ctx, x, L)[0]), \
+            parts(L, False, 1)
+    if name == "scale_down":
+        return (lambda x: rt_scale_down(ctx, x, L, True, L, False, pr,
+                                        want_frac=True)), parts(L, True, 1)
+    if name == "decrypt":
+        def dec(a, b):
+            ct = Ctxt(ctx, sk.pubkey, [(SKHandle(0, 1, 0), a),
+                                       (SKHandle(1, 1, 0), b)],
+                      L, False, pr, 0.0, 1)
+            return sk._inner_product_residues(ct)[0]
+        return dec, parts(L, False, 2)
+    fn, args = make_mult_relin(ctx, sk)
+    return lifted_jit(fn, *args), parts(L, False, 4)
+
+
+def _host(out):
+    """The outputs as host numpy arrays, in order."""
+    if isinstance(out, (tuple, list)):
+        return [a for o in out for a in _host(o)]
+    return [out.cpu().numpy() if isinstance(out, torch.Tensor) else out]
+
+
+def _same(a, b):
+    a, b = _host(a), _host(b)
+    return len(a) == len(b) and all(np.array_equal(x, y)
+                                    for x, y in zip(a, b))
+
+
+def _tensors(out):
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _tensors(o)]
+    return [out] if isinstance(out, torch.Tensor) else []
+
+
+@pytest.mark.parametrize("site", SITES)
+@pytest.mark.parametrize("size", list(GRAPH_SIZES))
+def test_graphed_site_equals_eager(gpu, size, site):
+    """Each jit site on the card: its first call (warm-up and capture) and
+    its replays equal the same call under disable_jit(), also after the
+    inputs change; successive calls return fresh tensors; N replays add
+    the launch counts of N eager calls."""
+    from helib_tpu_torch import jitutil
+    call, inputs = _site(size, site)
+    x1, x2 = inputs(1), inputs(2)
+    with jitutil.disable_jit():
+        e1, e2 = call(*x1), call(*x2)
+    caps = jitutil.captures
+    first = call(*x1)
+    assert jitutil.captures > caps
+    replays = jitutil.replays
+    g1, g2, g1b = call(*x1), call(*x2), call(*x1)
+    assert jitutil.replays > replays
+    assert _same(first, e1) and _same(g1, e1) and _same(g2, e2)
+    assert _same(g1b, e1) and not _same(e1, e2)
+    ptrs = {t.data_ptr() for t in _tensors(g1)}
+    assert ptrs.isdisjoint(t.data_ptr() for t in _tensors(g1b))
+    counters = jitutil.launch_counters()
+    c0 = jitutil.read_counts(counters)
+    with jitutil.disable_jit():
+        for _ in range(3):
+            call(*x1)
+    c1 = jitutil.read_counts(counters)
+    for _ in range(3):
+        call(*x1)
+    torch.cuda.synchronize()
+    c2 = jitutil.read_counts(counters)
+    assert jitutil.count_delta(c0, c1) == jitutil.count_delta(c1, c2)
+    assert any(jitutil.count_delta(c0, c1))
+
+
+@pytest.mark.parametrize("size", list(GRAPH_SIZES))
+def test_site_nested_in_a_capture_runs_its_body(gpu, size):
+    """Inside another run's capture, and inside a capture of the caller's
+    own, a site runs its body: the outer graph holds its kernels."""
+    from helib_tpu_torch import jitutil
+    call, inputs = _site(size, "digits")
+    x = inputs(5)
+    with jitutil.disable_jit():
+        want = call(*x)
+    call(*x)
+    replays, caps = jitutil.replays, jitutil.captures
+    outer = jitutil.lifted_jit(lambda v: call(v), *x)
+    got = outer(*x)
+    assert (jitutil.replays, jitutil.captures) == (replays, caps + 1)
+    assert _same(got, want) and _same(outer(*x), want)
+    assert jitutil.replays == replays + 1
+    static = x[0].clone()
+    g = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        with torch.cuda.graph(g, capture_error_mode="thread_local"):
+            held = call(static)
+    torch.cuda.current_stream().wait_stream(side)
+    static.copy_(x[0])
+    g.replay()
+    assert _same(held, want)
+
+
+@pytest.mark.parametrize("size", list(GRAPH_SIZES))
+def test_capture_error_raises(gpu, size):
+    """A function that reads the device from the host cannot be captured:
+    the run raises, on every call, and leaves the counts as they were; a
+    capture after it works."""
+    from helib_tpu_torch import jitutil
+    call, inputs = _site(size, "fwd")
+    x = inputs(7)
+
+    def host_read(v):
+        out = call(v)
+        return out + int(out[0, 0])
+    run = jitutil.lifted_jit(host_read, *x)
+    counters = jitutil.launch_counters()
+    for _ in range(2):
+        before = jitutil.read_counts(counters)
+        with pytest.raises(RuntimeError):
+            run(*x)
+        after = jitutil.read_counts(counters)
+        # the warm-up ran (and is counted); the capture added nothing
+        with jitutil.disable_jit():
+            host_read(*x)
+        assert jitutil.count_delta(before, after) == jitutil.count_delta(
+            after, jitutil.read_counts(counters))
+    assert run.captures == 0
+    assert _same(call(*x), call(*x))
+    # and the next capture works
+    ok = jitutil.lifted_jit(lambda v: call(v), *x)
+    assert _same(ok(*x), ok(*x)) and ok.captures == 1
+
+
+def test_capture_after_every_graph_is_gone(gpu):
+    """The shared pool outlives the graphs in it: a context captured,
+    dropped with all its graphs, and a new one captured again."""
+    import gc
+    from helib_tpu_torch import jitutil
+    for seed in (11, 12):
+        ctx = Context(**GRAPH_SIZES["m31"])
+        qs = ctx.primes_of(ctx.L, False).astype(np.int64)
+        x = to_device(np.random.default_rng(seed).integers(
+            0, qs[:, None], (ctx.L, ctx.n_eval)).astype(np.uint32), gpu)
+        rows = ctx.rows_of(ctx.L, False)
+        caps = jitutil.captures
+        first, again = ctx.fwd_ntt(x, rows), ctx.fwd_ntt(x, rows)
+        assert jitutil.captures == caps + 1 and torch.equal(first, again)
+        del ctx, first, again
+        gc.collect()

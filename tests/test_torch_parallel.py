@@ -44,7 +44,7 @@ def test_sharded_ntt_matches_helib_tpu_and_pow2ntt(n, negacyclic):
     from helib_tpu.parallel.sharded_ntt import ShardedNTT as JShardedNTT
     qs = np.array(gen_primes(2 * n, 2), dtype=np.uint32)
     x = _residues(qs, (2, n), seed=n + negacyclic)
-    s = tsn.ShardedNTT(qs, n, negacyclic=negacyclic, A=8)
+    s = tsn.ShardedNTT(qs, n, negacyclic=negacyclic, A=8, device="cpu")
     js = JShardedNTT(qs, n, negacyclic=negacyclic, A=8)
     before = tsn.sharded_transforms
     got = s.fwd(to_device(x, "cpu"))
@@ -81,7 +81,7 @@ def test_bluestein_apply_sharded_matches_helib_tpu(inverse, monkeypatch):
         v, jbt.dev, m, jbt.B, js))(jnp.asarray(x))), want)
     bt = BluesteinTables(qs, m, inverse=inverse)
     t = bt.tree("cpu", range(len(qs)), aux_tree(bt.B, "cpu"))
-    s = tsn.ShardedNTT(aux, bt.B, negacyclic=False, A=8)
+    s = tsn.ShardedNTT(aux, bt.B, negacyclic=False, A=8, device="cpu")
     got = tsn.bluestein_apply_sharded(to_device(x, "cpu"), t, m, bt.B, s)
     np.testing.assert_array_equal(to_host(got), want)
     assert torch.equal(got, bluestein_apply(to_device(x, "cpu"), t, m, bt.B))
@@ -125,8 +125,27 @@ def test_mesh_shape_logic_at_world_size_1():
     # helib_tpu's default block count: the ranks, within [2, 8]
     bt = BluesteinTables(np.array(gen_primes(2 * 45, 1), dtype=np.uint32),
                          45, inverse=False)
-    s = tsn.sharded_bluestein_ntt(bt)
+    s = tsn.sharded_bluestein_ntt(bt, device="cpu")
     assert (s.A, s.n, s.negacyclic, s.blocks) == (2, 128, False, (0, 2))
+
+
+def test_sharded_ntt_entry_points_default_to_the_card():
+    # like every entry point of the port: device="cuda" unless the caller
+    # asks for the host, and without a card the error Context raises
+    bt = BluesteinTables(np.array(gen_primes(2 * 45, 1), dtype=np.uint32),
+                         45, inverse=False)
+    qs = np.array(gen_primes(2 * 64, 2), dtype=np.uint32)
+    if torch.cuda.is_available():
+        assert tsn.ShardedNTT(qs, 64, True, A=2).device.type == "cuda"
+        assert tsn.sharded_bluestein_ntt(bt).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError) as ctx_err:
+        TContext(m=45, p=2, r=1, bits=120, c=3)
+    for make in (lambda: tsn.ShardedNTT(qs, 64, True, A=2),
+                 lambda: tsn.sharded_bluestein_ntt(bt)):
+        with pytest.raises(RuntimeError) as err:
+            make()
+        assert str(err.value) == str(ctx_err.value)
 
 
 # ---------------------------------------------------------------------------
@@ -152,8 +171,8 @@ def _two_ranks():
     out["rotate"] = [to_host(mesh.gather(o)) for o in rfn(*rex)]
     n = 512
     qs = np.array(gen_primes(2 * n, 2), dtype=np.uint32)
-    s = tsn.ShardedNTT(qs, n, negacyclic=True, A=2).set_group(
-        dist.group.WORLD)
+    s = tsn.ShardedNTT(qs, n, negacyclic=True, A=2,
+                       device="cpu").set_group(dist.group.WORLD)
     lo, hi = s.span()
     x = to_device(_residues(qs, (2, n), seed=7), "cpu")
     y = s.fwd(x[..., lo:hi])
