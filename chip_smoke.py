@@ -62,9 +62,14 @@ Phases, in order; any failure exits non-zero:
      clusters the card holds at once;
  11. the cost probes at the TPU probes' shapes: P1's seven variants on 160
      rows of 16384 words, 50 chained applications, and P2's three phases on
-     160 rows of n = 16384, 100 chained, each held to its plain version bit
-     for bit; us per application and per row beside each bound, and K1's
-     time per row at n = 16384;
+     160 rows of n = 16384 and of n = 65536 (K3's 4-CTA clusters, coarse
+     through distributed shared memory), 100 chained, each held to its
+     plain version bit for bit alone and over a chain of 3; each
+     kernels-line row (p1, p2 at n = 16384, p2_65536) driven with the counts
+     reset before and read after; us per application (the median of 5
+     timed chains) and per row beside each bound and what bounds it (P2's
+     distributed shared memory bytes beside it), K1's and K5's time per row
+     at n = 16384 and K3's at n = 65536, and P2's split of each;
  12. the BGV slot layer at m=31775, p=2, bits=600, c=3, mvec=(31, 25, 41)
      (HElib's small thin-bootstrapping size: 1200 slots of GF(2^20),
      hypercube [30, 20, 2], the last dimension bad; B = 65536), with
@@ -199,7 +204,8 @@ pool's bytes), the outputs of the two equal, and printed as one block at
 the end.
 Phase 18's ranks start and set up while phase 19 runs, then run their
 timed parts.  `--parallel-only` runs the build, phases 3 and 4 and then
-phases 19 and 18 alone.  Each path, each op and the probe run is driven with the launch
+phases 19 and 18 alone; `--probes-only` the build, phase 3 and phase 11.
+Each path, each op and the probe run is driven with the launch
 counts set to 0 just before it and read just after; the counts include the
 staged transforms, which phases 1-16 must leave at 0, and the sharded ones,
 which phases 1-17 must leave at 0.  The last three lines are the card's
@@ -2994,12 +3000,15 @@ def rotation_path(ctx, sk, card: str):
 # ---------------------------------------------------------------------------
 
 PROBE_ROWS, PROBE_N, P1_CHAIN, P2_CHAIN = 160, 16384, 50, 100
+# P2 at K1's n and at K3's cluster size (4 CTAs of 64 KB quarters)
+P2_SIZES = (16384, 65536)
 
 
 def probe_bound_ms(kind: str, variant: str, R: int, n: int):
     """(bytes bound, multiplies bound) in ms of one application: x read and
     out written once, the twiddles the variant reads once; 3 32-bit
-    multiplies a Shoup product."""
+    multiplies a Shoup product.  The distributed shared memory of P2's
+    cross composite is on-chip traffic (probe_dsmem_bytes), not here."""
     from helib_tpu_torch.ops import probes
     words, h = R * n, n // 2
     if kind == "p1":
@@ -3018,103 +3027,213 @@ def probe_bound_ms(kind: str, variant: str, R: int, n: int):
             3 * muls / INT32_MUL_PER_S * 1e3)
 
 
-def probe_path(dev, card: str) -> list:
-    """Each probe against its plain version on the card, then the chained
-    probe run (counts reset before, read after) and the timings; K1 and K5
-    per row at the same n for comparison.  Returns the P1 and P2 rows."""
-    from helib_tpu_torch.ops import probes, ntt2
-    from helib_tpu_torch.ops.conv import conv_cuda
+def probe_dsmem_bytes(kind: str, variant: str, R: int, n: int) -> int:
+    """The bytes one application moves between the CTAs of a cluster:
+    P2's coarse phase at n = 65536 writes the 3 quarters of a row that
+    belong to the other CTAs of its 4-CTA cluster, and reads them back."""
+    if kind == "p2" and variant == "coarse" and n == 65536:
+        return 2 * 4 * R * n * 3 // 4
+    return 0
+
+
+def median_event_ms(fn, reps: int = 5) -> float:
+    """Median over `reps` runs of fn()'s device time in ms, each run queued
+    behind a sleep kernel, after one warm run."""
+    fn()
+    out = []
+    for _ in range(reps):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        torch.cuda._sleep(HOLD_CYCLES)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b))
+    return float(np.median(out))
+
+
+def probe_cases(dev, sizes=P2_SIZES) -> list:
+    """(kernels-line row, kind, variant, n, x, tables, chain length) of
+    every P1 variant on [PROBE_ROWS, PROBE_N] and every P2 phase on
+    [PROBE_ROWS, n] for n in sizes, from seed 0.  P2 at n != PROBE_N is a
+    row of its own (p2_65536)."""
+    from helib_tpu_torch.ops import probes
     from helib_tpu_torch.ops.ntt import aux_primes, aux_tree
     from helib_tpu_torch.ops.modops import shoup, to_device
 
-    R, n = PROBE_ROWS, PROBE_N
+    R = PROBE_ROWS
     qrow = aux_primes()[np.arange(R) % 3].astype(np.uint32)
     rng = np.random.default_rng(0)
-    x = rng.integers(0, qrow[:, None].astype(np.int64), (R, n))
-    w = rng.integers(1, qrow[:, None].astype(np.int64), (R, n))
+
+    def rows_of(n):
+        return to_device(rng.integers(0, qrow[:, None].astype(np.int64),
+                                      (R, n)).astype(np.uint32), dev)
+    X = rows_of(PROBE_N)
+    w = rng.integers(1, qrow[:, None].astype(np.int64), (R, PROBE_N))
     wsh = shoup(w.astype(np.uint32), qrow[:, None].astype(np.uint64))
-    X, W, WS, Q = (to_device(a.astype(np.uint32), dev)
-                   for a in (x, w, wsh, qrow[:, None]))
-    aux = aux_tree(n, dev)["aux"]
-    probe = {"p1": (probes.P1_VARIANTS, P1_CHAIN, probes.p1_cuda,
-                    probes.p1_plain, (W, WS, Q)),
-             "p2": (probes.P2_PHASES, P2_CHAIN, probes.p2_cuda,
-                    probes.p2_plain, (aux["tw_all"], aux["tw_all_sh"],
-                                      aux["q"].reshape(3, 1)))}
+    W, WS, Q = (to_device(a.astype(np.uint32), dev)
+                for a in (w, wsh, qrow[:, None]))
+    cases = [("p1", "p1", v, PROBE_N, X, (W, WS, Q), P1_CHAIN)
+             for v in probes.P1_VARIANTS]
+    for n in sizes:
+        aux = aux_tree(n, dev)["aux"]
+        tabs = (aux["tw_all"], aux["tw_all_sh"], aux["q"].reshape(3, 1))
+        xn = X if n == PROBE_N else rows_of(n)
+        row = "p2" if n == PROBE_N else f"p2_{n}"
+        cases += [(row, "p2", ph, n, xn, tabs, P2_CHAIN)
+                  for ph in probes.P2_PHASES]
+    return cases
 
-    def chained(run, v, args, count):
-        o = X
-        for _ in range(count):
-            o = run(v, o, *args)
-        return o
 
-    # on the card against the plain versions, one application and a chain
-    for kind, (variants, count, run, plain, args) in probe.items():
-        for v in variants:
-            got, ref = run(v, X, *args), plain(v, X, *args)
-            if not torch.equal(got, ref):
-                raise AssertionError(f"{kind} {v}: kernel != plain")
-            o = X
-            for _ in range(3):
-                o = plain(v, o, *args)
-            if not torch.equal(chained(run, v, args, 3), o):
-                raise AssertionError(f"{kind} {v}: chained kernel != plain")
-    print(f"probes: P1 ({len(probes.P1_VARIANTS)} variants) and P2 "
-          f"({len(probes.P2_PHASES)} phases) == plain bit for bit on "
-          f"[{R}, {n}]")
+def probe_apply(kind: str, v: str, x, args, count: int = 1,
+                plain: bool = False):
+    """`count` chained applications of probe `kind` variant v to x, by
+    its kernel or by its plain version."""
+    from helib_tpu_torch.ops import probes
+    f = getattr(probes, f"{kind}_{'plain' if plain else 'cuda'}")
+    o = x
+    for _ in range(count):
+        o = f(v, o, *args)
+    return o
 
-    reset_launches()
-    for kind, (variants, count, run, _, args) in probe.items():
-        for v in variants:
-            chained(run, v, args, count)
-    torch.cuda.synchronize()
-    launches = read_launches()
-    print(f"probes: the probe run launched {launches}")
-    if not (launches["p1"] == len(probe["p1"][0]) * P1_CHAIN
-            and launches["p2"] == len(probe["p2"][0]) * P2_CHAIN) or any(
-                v for k, v in launches.items() if k not in ("p1", "p2")):
-        raise AssertionError("probe run: unexpected launches")
 
-    # K1 (and K5) per row at n = 16384 on 162 rows
-    args1 = conv_inputs(n, 54, (1,), seed=7, dev=dev)
-    rows1 = args1[0].numel() // n
-    k1_us = event_ms(lambda: conv_cuda(*args1)) / rows1 * 1e3
-    k5_us = event_ms(lambda: ntt2.conv2_cuda(*args1)) / rows1 * 1e3
-    print(f"probes: per row at n={n}: K1 {k1_us:.3f} us, K5 (k="
-          f"{ntt2.K_MAX}) {k5_us:.3f} us")
+def check_probes(cases) -> None:
+    """Each probe == its plain version bit for bit, alone and chained 3
+    times."""
+    for _, kind, v, n, x, args, _ in cases:
+        for count in (1, 3):
+            if not torch.equal(probe_apply(kind, v, x, args, count),
+                               probe_apply(kind, v, x, args, count, True)):
+                raise AssertionError(f"{kind} {v} at n={n}: {count} "
+                                     f"kernel application(s) != plain")
 
-    rows, detail = [], {}
+
+def probe_us(cases, reps: int = 5) -> dict:
+    """Microseconds an application of each case, keyed kind/variant/n: the
+    median of its chain's device time over `reps` runs, over the chain's
+    length."""
+    return {f"{kind}/{v}/{n}": median_event_ms(
+        lambda: probe_apply(kind, v, x, args, count), reps) / count * 1e3
+        for _, kind, v, n, x, args, count in cases}
+
+
+def conv_rows_us(dev, reps: int = 5) -> dict:
+    """Microseconds a row of K1 and K5 at n = PROBE_N on [1, 3, 54, n] and
+    of K3 at n = 65536 on the aux-major [3, 2, 27, n] (162 rows each)."""
+    from helib_tpu_torch.ops import ntt2
+    from helib_tpu_torch.ops.conv import conv_aux_cuda, conv_cuda
+    a1 = conv_inputs(PROBE_N, 54, (1,), seed=7, dev=dev)
+    x3, aux3, kh3, khsh3 = conv_inputs(65536, 27, (2,), seed=8, dev=dev)
+    a3 = (x3.movedim(1, 0).contiguous(), aux3, kh3, khsh3)
+    out = {}
+    for name, fn, a, n in (("k1", conv_cuda, a1, PROBE_N),
+                           ("k5", ntt2.conv2_cuda, a1, PROBE_N),
+                           ("k3", conv_aux_cuda, a3, 65536)):
+        out[name] = median_event_ms(lambda: [fn(*a) for _ in range(10)],
+                                    reps) / 10 / (a[0].numel() // n) * 1e3
+    return out
+
+
+def probe_path(dev, card: str) -> list:
+    """Each probe against its plain version on the card, alone and over a
+    chain of 3, then the probe run of each kernels-line row (counts reset
+    before, read after) and the timings; K1 and K5 a row at n = 16384 and
+    K3 a row at n = 65536 for comparison.  Returns the rows p1, p2 (P2 at
+    n = 16384, as the TPU probe runs it) and p2_65536."""
+    from helib_tpu_torch.ops import probes, ntt2
+
+    R = PROBE_ROWS
+    cases = probe_cases(dev)
+    check_probes(cases)
+    print(f"probes: P1 ({len(probes.P1_VARIANTS)} variants) on [{R}, "
+          f"{PROBE_N}] and P2 ({len(probes.P2_PHASES)} phases) on [{R}, n], "
+          f"n = {', '.join(map(str, P2_SIZES))}, == plain bit for bit, alone "
+          f"and over a chain of 3")
+
+    names = list(dict.fromkeys(c[0] for c in cases))
+    launches = {}
+    for name in names:
+        mine = [c for c in cases if c[0] == name]
+        kind = mine[0][1]
+        reset_launches()
+        for _, _, v, _, x, args, count in mine:
+            probe_apply(kind, v, x, args, count)
+        torch.cuda.synchronize()
+        got = read_launches()
+        want = sum(c[6] for c in mine)
+        print(f"probes: the {name} run launched {got}")
+        if got[kind] != want or any(v for k, v in got.items() if k != kind):
+            raise AssertionError(f"{name} run: unexpected launches "
+                                 f"(expected {kind}: {want} alone)")
+        launches[name] = got[kind]
+
+    k_us = conv_rows_us(dev)
+    print(f"probes: per row: K1 {k_us['k1']:.3f} us and K5 (k="
+          f"{ntt2.K_MAX}) {k_us['k5']:.3f} us at n={PROBE_N}, K3 "
+          f"{k_us['k3']:.3f} us at n=65536")
+
+    app_us = probe_us(cases)
+    detail = {}
+    for _, kind, v, n, x, args, _ in cases:
+        app = app_us[f"{kind}/{v}/{n}"] / 1e3
+        pl = event_ms(lambda: probe_apply(kind, v, x, args, plain=True),
+                      reps=2, warm=1)
+        b, o = probe_bound_ms(kind, v, R, n)
+        dsmem = probe_dsmem_bytes(kind, v, R, n)
+        by = "bytes" if b >= o else "operations"
+        detail[f"{kind}/{v}/{n}"] = {
+            "us_per_app": app * 1e3, "us_per_row": app * 1e3 / R,
+            "bound_us": max(b, o) * 1e3, "bound_by": by,
+            "bytes_bound_us": b * 1e3, "ops_bound_us": o * 1e3,
+            "plain_us": pl * 1e3, "dsmem_bytes": dsmem}
+        print(f"probes: {kind} {v:9s} n={n:5d} {app * 1e3:9.2f} us/app "
+              f"{app * 1e3 / R:7.3f} us/row, bound {max(b, o) * 1e3:8.2f} us "
+              f"({by}; bytes {b * 1e3:.2f}, operations {o * 1e3:.2f})"
+              + (f", {dsmem / 2**20:.1f} MiB through distributed shared "
+                 f"memory" if dsmem else "")
+              + f", plain {pl * 1e3:10.1f} us")
+    for n, k_name in ((PROBE_N, "k1"), (65536, "k3")):
+        us = {ph: detail[f"p2/{ph}/{n}"]["us_per_row"]
+              for ph in probes.P2_PHASES}
+        both = us["coarse"] + us["fine"] - us["memory"]
+        print(f"probes: at n={n} per row: memory {us['memory']:.3f}, "
+              f"coarse {us['coarse']:.3f}, fine {us['fine']:.3f} us; coarse "
+              f"+ fine - memory = {both:.3f} us = "
+              f"{100 * both / k_us[k_name]:.1f} % of {k_name.upper()}'s "
+              f"{k_us[k_name]:.3f} us")
+    stages = {n: probes.p2_range("coarse", n.bit_length() - 1)[1]
+              for n in P2_SIZES}
+    per_ws = {n: detail[f"p2/coarse/{n}"]["us_per_row"] * 1e3
+              / (n * stages[n]) for n in P2_SIZES}
+    print("probes: coarse per word and stage: " + ", ".join(
+        f"{per_ws[n]:.4f} ns at n={n} ({stages[n]} stages)"
+        for n in P2_SIZES))
+
+    # one kernels-line row a name: the mean over its variants or phases
     replaces = {"p1": "benchmarks/kernel_parts.py:26",
                 "p2": "benchmarks/kernel_phases.py:31"}
-    for kind, (variants, count, run, plain, args) in probe.items():
-        tot = tot_plain = bb = bo = 0.0
-        for v in variants:
-            app = event_ms(lambda: chained(run, v, args, count), reps=3,
-                           warm=1) / count
-            pl = event_ms(lambda: plain(v, X, *args), reps=2, warm=1)
-            b, o = probe_bound_ms(kind, v, R, n)
-            detail[f"{kind}/{v}"] = {"us_per_app": app * 1e3,
-                                     "us_per_row": app * 1e3 / R,
-                                     "bound_us": max(b, o) * 1e3,
-                                     "bound_by": "bytes" if b >= o
-                                     else "operations",
-                                     "plain_us": pl * 1e3}
-            print(f"probes: {kind} {v:9s} {app * 1e3:9.2f} us/app "
-                  f"{app * 1e3 / R:7.3f} us/row, bound {max(b, o) * 1e3:8.2f}"
-                  f" us ({'bytes' if b >= o else 'operations'}), plain "
-                  f"{pl * 1e3:10.1f} us")
-            tot, tot_plain, bb, bo = tot + app, tot_plain + pl, bb + b, bo + o
-        nv = len(variants)
-        rows.append({"name": kind, "route": "cuda",
+    rows = []
+    for name in names:
+        mine = [detail[f"{kind}/{v}/{n}"]
+                for row, kind, v, n, *_ in cases if row == name]
+        bb = sum(d["bytes_bound_us"] for d in mine) / 1e3
+        bo = sum(d["ops_bound_us"] for d in mine) / 1e3
+        nv = len(mine)
+        rows.append({"name": name, "route": "cuda",
                      "source": "helib_tpu_torch/ops/csrc/probes.cu",
-                     "replaces": replaces[kind], "launches": launches[kind],
-                     "max_abs_err": 0, "ms": tot / nv,
-                     "plain_ms": tot_plain / nv, "bound_ms": max(bb, bo) / nv,
+                     "replaces": replaces[name[:2]],
+                     "launches": launches[name], "max_abs_err": 0,
+                     "ms": sum(d["us_per_app"] for d in mine) / 1e3 / nv,
+                     "plain_ms": sum(d["plain_us"] for d in mine) / 1e3 / nv,
+                     "bound_ms": max(bb, bo) / nv,
                      "bound_by": "bytes" if bb >= bo else "operations",
                      "library_ms": None})
-    print(json.dumps({"metric": "torch_cuda_probes_us", "rows": R, "n": n,
-                      "variants": detail, "k1_us_per_row": k1_us,
-                      "k5_us_per_row": k5_us, "card": card}))
+    print(json.dumps({"metric": "torch_cuda_probes_us", "rows": R,
+                      "p1_n": PROBE_N, "p2_n": list(P2_SIZES),
+                      "variants": detail, "k1_us_per_row": k_us["k1"],
+                      "k5_us_per_row": k_us["k5"],
+                      "k3_us_per_row_65536": k_us["k3"], "card": card}))
     return rows
 
 
@@ -3668,7 +3787,10 @@ def main(argv=None) -> int:
     ap.add_argument("--parallel-only", action="store_true",
                     help="build, phase 4 (its output is 18a-b's reference), "
                          "then phases 18 and 19 alone")
-    only = ap.parse_args(argv).parallel_only
+    ap.add_argument("--probes-only", action="store_true",
+                    help="build, phase 3, then phase 11 alone")
+    opts = ap.parse_args(argv)
+    only = opts.parallel_only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3708,6 +3830,13 @@ def main(argv=None) -> int:
           f"{rows} rows (n = 8 .. 32768, P = 5 and 20, every k, "
           f"max |err| = {err})")
 
+    if opts.probes_only:
+        probe_path(dev, card)
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     fn, args, launches, phase4 = main_path(dev)
     captures = fn.captures
     if only:
@@ -3762,7 +3891,8 @@ def main(argv=None) -> int:
 
     kernels["conv_aux"], perop_host, held10 = perop_path(dev, card)
     torch.cuda.empty_cache()
-    kernels["p1"], kernels["p2"] = probe_path(dev, card)
+    for row in probe_path(dev, card):
+        kernels[row["name"]] = row
     torch.cuda.empty_cache()
     _, held, slots_host = slot_path(dev, card, perop_host)
     t0 = time.time()
@@ -3804,7 +3934,8 @@ def main(argv=None) -> int:
     parallel_and_examples(card, phase4, start)
     print_graph_rows()
     print(card)
-    order = ("conv", "ntt", "conv_aux", "ntt2", "conv2", "p1", "p2")
+    order = ("conv", "ntt", "conv_aux", "ntt2", "conv2", "p1", "p2",
+             "p2_65536")
     print(json.dumps({"kernels": [kernels[k] for k in order]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,11 +21,12 @@
 // [3, P, n] row r uses: RowMajor (K1, K5), AuxMajor (K3) and PrimeRows (K2,
 // K4) below.
 //
-// Design.  A staged radix-2 network (K1-K3's first design; probes.cu
-// stage_range) makes every one of the log2 n stages a shared-memory round
-// trip of the row and a __syncthreads(); the cost probes (probes.cu) put
-// such a stage at about 3x the same butterflies held in registers.  Here the
-// stages run as register composites (composite.cuh) under the port's
+// Design.  A staged radix-2 network (K1-K3's first design) makes every one
+// of the log2 n stages a shared-memory round trip of the row and a
+// __syncthreads(); the staged cost probe of that design took 2.3-2.9x the
+// time of the same butterflies held in registers (PERF.md, P1 "before").
+// The cost probe P2 (probes.cu) now runs this template's own pieces.  Here
+// the stages run as register composites (composite.cuh) under the port's
 // schedule ops/ntt2.py schedule(log_n, K): the remainder log_n % K first,
 // then composites of K levels, K a template parameter (3 on every default
 // path; K4 and K5 take 1 .. 3 from HELIB_NTT_V2_K).  A composite is one
@@ -166,17 +167,45 @@ __host__ __device__ constexpr int log2_cluster(int cluster) {
   return cluster == 4 ? 2 : cluster == 2 ? 1 : 0;
 }
 
-// Composite ci of schedule(log_loc, K) on this CTA's part, CTA h of a
-// cluster of 2^c: levels at global stage c + s0 and global block
-// (h << s0) + b; each group from load(r, base, log_l) to store(...).
+// This CTA's part of the row: the kernel's dynamic shared memory.
+__device__ __forceinline__ uint32_t* row_smem() {
+  extern __shared__ uint32_t s[];
+  return s;
+}
+
+// The launch configuration of `rows` rows of 2^log_n words, a cluster of
+// kCluster CTAs of kThreads a row, each holding 2^log_n / kCluster words in
+// dynamic shared memory.
+template <int kCluster, int kThreads>
+cudaLaunchConfig_t row_config(long long rows, int log_n, cudaStream_t stream,
+                              cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(rows * kCluster));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = sizeof(uint32_t) << (log_n - log2_cluster(kCluster));
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = kCluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = kCluster > 1 ? 1 : 0;  // one CTA a row: a plain launch
+  return cfg;
+}
+
+// Composite ci of phase_schedule(lo, lo + stages, K) (ops/ntt2.py; first
+// = sched_first<K>(stages)) on this CTA's part, CTA h of a cluster of 2^c:
+// levels at global stage c + s0 and global block (h << s0) + b; each group
+// from load(r, base, log_l) to store(...).  The kernels run all log_loc
+// stages (lo = 0); the cost probe P2 (probes.cu) a part of them.
 template <int K, bool kInverse, class Load, class Store>
-__device__ __forceinline__ void composite(int log_loc, int ci, int first,
-                                          int c, int h,
+__device__ __forceinline__ void composite(int log_loc, int lo, int ci,
+                                          int first, int c, int h,
                                           const uint32_t* __restrict__ w,
                                           const uint32_t* __restrict__ wsh,
                                           uint32_t q, Load&& load,
                                           Store&& store) {
-  const int s0 = sched_s0<K>(ci, first);
+  const int s0 = lo + sched_s0<K>(ci, first);
   dispatch_k<K>(sched_k<K>(ci, first), [&](auto kc) {
     constexpr int k = decltype(kc)::value;
     for_each_group<k>(
@@ -244,6 +273,10 @@ __device__ __forceinline__ void cross_inverse(uint32_t* s, int log_loc, int h,
   cluster.sync();
 }
 
+// probes.cu p2_kernel runs this body's sequence of composites (cross
+// forward, forward composites, the fused composite, inverse composites,
+// cross inverse) over a stage range and without khat: a change to the
+// sequence here is mirrored there.
 template <class Map, int kMode, int K, int kCluster, int kThreads,
           int kMinBlocks>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
@@ -262,7 +295,7 @@ ntt_rows_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
   constexpr bool kFwd = kMode != kInverse;  // runs forward levels
   constexpr bool kInv = kMode != kForward;  // runs inverse levels
   constexpr int c = log2_cluster(kCluster);
-  extern __shared__ uint32_t s[];
+  uint32_t* const s = row_smem();
   const int n = 1 << log_n;
   const int log_loc = log_n - c;
   const long long row = blockIdx.x / kCluster;
@@ -310,10 +343,10 @@ ntt_rows_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
       cross_forward<kCluster>(s, xr, log_loc, h, w_f, wsh_f, q);
     for (int ci = 0; ci < last; ++ci) {
       if (kCluster == 1 && ci == 0) {
-        composite<K, false>(log_loc, ci, first, c, h, w_f, wsh_f, q, xload,
+        composite<K, false>(log_loc, 0, ci, first, c, h, w_f, wsh_f, q, xload,
                             sstore);
       } else {
-        composite<K, false>(log_loc, ci, first, c, h, w_f, wsh_f, q, sload,
+        composite<K, false>(log_loc, 0, ci, first, c, h, w_f, wsh_f, q, sload,
                             sstore);
       }
       __syncthreads();
@@ -361,10 +394,10 @@ ntt_rows_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
     for (int ci = last - 1; ci >= 0; --ci) {
       __syncthreads();
       if (kCluster == 1 && ci == 0) {
-        composite<K, true>(log_loc, ci, first, c, h, w_i, wsh_i, q, sload,
+        composite<K, true>(log_loc, 0, ci, first, c, h, w_i, wsh_i, q, sload,
                            ostore);
       } else {
-        composite<K, true>(log_loc, ci, first, c, h, w_i, wsh_i, q, sload,
+        composite<K, true>(log_loc, 0, ci, first, c, h, w_i, wsh_i, q, sload,
                            sstore);
       }
     }
@@ -388,19 +421,7 @@ struct Rows {
   static cudaLaunchConfig_t config(long long rows, int log_n,
                                    cudaStream_t stream,
                                    cudaLaunchAttribute* attr) {
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(static_cast<unsigned>(rows * kCluster));
-    cfg.blockDim = dim3(kThreads);
-    cfg.dynamicSmemBytes =
-        sizeof(uint32_t) << (log_n - log2_cluster(kCluster));
-    cfg.stream = stream;
-    attr->id = cudaLaunchAttributeClusterDimension;
-    attr->val.clusterDim.x = kCluster;
-    attr->val.clusterDim.y = 1;
-    attr->val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = kCluster > 1 ? 1 : 0;  // one CTA a row: a plain launch
-    return cfg;
+    return row_config<kCluster, kThreads>(rows, log_n, stream, attr);
   }
 
   static cudaError_t prepare(const cudaLaunchConfig_t& cfg) {

@@ -1,25 +1,32 @@
-"""Cost probes of the port's radix-2 kernels: P1 and P2.
+"""Cost probes of the port's kernels: P1 and P2.
 
 Ports of the TPU probes benchmarks/kernel_parts.py::run (P1, kernel
 `kern_mul`) and benchmarks/kernel_phases.py::make (P2, inner `kern`).  They
-lie on no path: they answer whether K1-K3 are bound by their 32-bit
-multiplies, by the shared-memory round trip of each stage, or by the
-barriers between stages.  csrc/probes.cu has the kernels and what each
-variant does; every variant here has its plain torch version, which the
-kernel equals bit for bit:
+lie on no path: they answer whether K1-K5 (the row template
+csrc/ntt_rows.cuh) are bound by their 32-bit multiplies, by their trips
+through shared memory, or by the barriers and the cluster's traffic between
+their composites.  csrc/probes.cu has the kernels, what each variant does
+and what bounds it on the H100; every variant here has its plain torch
+version, which the kernel equals bit for bit:
 
   P1 (`p1_cuda` / `p1_plain`), rows x [R, N] with per-row twiddles w, wsh
-     [R, N] and primes q [R, 1], one application a launch:
-     mul, bfly, stage, stage_r, stage_c, stage_c64, stage_w.  `stage` and
-     `stage_c` differ only in the TPU's relayout; on Hopper they are one
-     kernel instantiation.
+     [T, N] and primes q [T, 1] (row r on row r % T), one application a
+     launch: mul, bfly, stage, stage_r, stage_c, stage_c64, stage_w.  Every
+     variant is register-local on Hopper: a thread holds closed orbits of
+     the row (a word, a pair, or the 8 words of stage_r's and stage_w's
+     3-bit rotation) for all 28 rounds, no shared memory.  `stage` and
+     `stage_c` differ only in the TPU's relayout; here they are one kernel
+     instantiation.  2^3 <= N <= 2^15 (the staged variants from
+     2^(log2 m + 3)).
   P2 (`p2_cuda` / `p2_plain`), rows x [R, n], row r on prime r % T of the
      flat tables tw, tw_sh [T, n] and q [T, 1] (T = 3: the aux primes):
-     memory, coarse, fine.
+     memory, coarse, fine -- K1's own pieces, built from the template's
+     helpers: register composites, one barrier each, at n = 65536 K3's
+     4-CTA cluster with coarse's first two stages through distributed
+     shared memory.  2^7 <= n <= 2^16.
 
-The probes use K1's fully reduced arithmetic, so every output is fully
-reduced; the TPU probes reduce lazily (P1 ends in the same residues, P2 is
-congruent mod q).
+Every output is fully reduced; the TPU probes reduce lazily (P1 ends in the
+same residues, P2 is congruent mod q).
 """
 
 from __future__ import annotations
@@ -37,6 +44,8 @@ P2_PHASES = ("memory", "coarse", "fine")
 ROUNDS = 28      # kernel_parts.py STAGES
 MULS = 14        # the Shoup products of the `mul` variant
 FINE = 7         # the fine phase's stages (kernel_phases.py: log2 n - 7)
+P1_MAX_LOG_N = 15    # kernel_parts.py runs N = 2^14
+P2_MAX_LOG_N = 16    # n = 65536: a 4-CTA cluster a row, as K3
 
 
 def p1_blocks(variant: str) -> int:
@@ -116,17 +125,22 @@ def p2_plain(phase: str, x, tw, tw_sh, q):
     return x.clone() if phase == "memory" else x
 
 
-def _launch(probe: int, code: int, x, w, wsh, q):
+def _launch(probe: int, code: int, lo: int, hi: int, x, w, wsh, q):
     R, n = x.shape
     log_n = n.bit_length() - 1
-    lo = 7 if probe == 2 or code == P1_VARIANTS.index("stage_c64") else 3
-    if n != 1 << log_n or not lo <= log_n <= 15:
+    if n != 1 << log_n or not lo <= log_n <= hi:
         raise ValueError(f"P{probe} kernel: n={n} is not a power of two in "
-                         f"[2^{lo}, 2^15]")
+                         f"[2^{lo}, 2^{hi}]")
     T = w.shape[0]
     check_tensors(f"P{probe}", x.device,
                   [("x", x, (R, n)), ("w", w, (T, n)), ("wsh", wsh, (T, n)),
                    ("q", q, (T, 1))])
+    # 16-byte vectors: x and out, and P1's twiddles
+    for name, t in [("x", x)] + ([("w", w), ("wsh", wsh)] if probe == 1
+                                 else []):
+        if t.data_ptr() % 16:
+            raise ValueError(f"P{probe} kernel: {name} must start on a "
+                             f"16-byte boundary")
     out = torch.empty_like(x)
     launch("probes", x.device, ctypes.c_int(probe), ctypes.c_int(code), x,
            out, ctypes.c_longlong(R), ctypes.c_int(log_n), w, wsh, q,
@@ -135,11 +149,14 @@ def _launch(probe: int, code: int, x, w, wsh, q):
 
 
 def p1_cuda(variant: str, x, w, wsh, q):
-    """P1 `variant` on the GPU: x, w, wsh [R, N], q [R, 1] (int32,
-    contiguous)."""
+    """P1 `variant` on the GPU: x [R, N], w, wsh [T, N], q [T, 1] (int32,
+    contiguous, x, w and wsh on 16-byte boundaries)."""
     if variant not in P1_VARIANTS:
         raise ValueError(f"unknown P1 variant {variant!r}")
-    out = _launch(1, P1_VARIANTS.index(variant), x, w, wsh, q)
+    log_m = p1_blocks(variant).bit_length() - 1
+    lo = log_m + 3 if variant.startswith("stage") else 3
+    out = _launch(1, P1_VARIANTS.index(variant), lo, P1_MAX_LOG_N, x, w,
+                  wsh, q)
     p1_cuda.launches += 1
     return out
 
@@ -151,7 +168,8 @@ def p2_cuda(phase: str, x, tw, tw_sh, q):
     """P2 `phase` on the GPU: x [R, n], tables [T, n], q [T, 1]."""
     if phase not in P2_PHASES:
         raise ValueError(f"unknown P2 phase {phase!r}")
-    out = _launch(2, P2_PHASES.index(phase), x, tw, tw_sh, q)
+    out = _launch(2, P2_PHASES.index(phase), FINE, P2_MAX_LOG_N, x, tw, tw_sh,
+                  q)
     p2_cuda.launches += 1
     return out
 

@@ -334,6 +334,33 @@ def test_p2_probe_matches_plain(gpu, phase):
     assert torch.equal(got, probes.p2_plain(phase, x, *tabs))
 
 
+@pytest.mark.parametrize("phase", probes.P2_PHASES)
+def test_p2_probe_at_65536_matches_plain(gpu, phase):
+    """n = 65536 on 4-CTA clusters (coarse through distributed shared
+    memory), 5 rows on 3 tables, alone and chained twice."""
+    x = _probe_args(65536, 5, seed=3, dev=gpu)[0]
+    aux = ntt.aux_tree(65536, gpu)["aux"]
+    tabs = (aux["tw_all"], aux["tw_all_sh"], aux["q"].reshape(3, 1))
+    before = probes.p2_cuda.launches
+    got = probes.p2_cuda(phase, probes.p2_cuda(phase, x, *tabs), *tabs)
+    torch.cuda.synchronize()
+    assert probes.p2_cuda.launches == before + 2
+    assert torch.equal(got, probes.p2_plain(
+        phase, probes.p2_plain(phase, x, *tabs), *tabs))
+
+
+@pytest.mark.parametrize("variant", probes.P1_VARIANTS)
+def test_p1_probe_fills_part_of_the_last_cta(gpu, variant):
+    """5 rows of 256 words (512 for stage_c64, its least N): every
+    variant's threads end inside the last CTA (8 to 64 threads a row, 128
+    a CTA)."""
+    args = _probe_args(512 if variant == "stage_c64" else 256, 5, seed=4,
+                       dev=gpu)
+    got = probes.p1_cuda(variant, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, probes.p1_plain(variant, *args))
+
+
 SLOTS = dict(m=1271, p=2, r=1, bits=120, c=3, mvec=(31, 41))
 
 

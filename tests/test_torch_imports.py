@@ -1,5 +1,5 @@
-"""Import hygiene of the PyTorch port: helib_tpu_torch and chip_smoke.py
-import neither JAX nor anything of helib_tpu."""
+"""Import hygiene of the PyTorch port: helib_tpu_torch, chip_smoke.py and
+the scripts in tools/ import neither JAX nor anything of helib_tpu."""
 
 import ast
 import os
@@ -22,7 +22,9 @@ def _port_modules():
 
 
 def _port_sources():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    tools = os.path.join(REPO, "tools")
+    out = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(tools, f) for f in os.listdir(tools) if f.endswith(".py")]
     for root, _, files in os.walk(PKG):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
