@@ -1,0 +1,9 @@
+"""Share of the time of the `rotate` requests (their `request.rotate` spans)
+in which none of the kernels, copies or fills they caused ran on the
+card, in %."""
+
+from hebench.metrics._common import request_idle_share
+
+
+def read(t: dict):
+    return request_idle_share(t, "rotate")
