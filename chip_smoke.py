@@ -154,7 +154,8 @@ Phases, in order; any failure exits non-zero:
      of phase 15's context, SecKey, PubKey (relinearization matrix alone)
      and a ciphertext, read back, c0 + c1*s = p*e on the exported rows, the
      same bytes as the export carried to the host CPU; (f) every step in
-     a timing.timer, printed with print_all_timers beside its CUDA-event
+     a timing.timer (spans on for the phase), printed with
+     print_all_timers, with the port's own spans, beside its CUDA-event
      ms;
  18. the parallel layer (helib_tpu_torch/parallel), ranks as processes on
      the card started by parallel.distributed.launch: (a) one NCCL rank
@@ -2563,15 +2564,20 @@ def diag_path(dev, card: str, held10, held15, ctx16) -> None:
     from helib_tpu_torch import timing
 
     timing.reset_all_timers()
-    step = steps()
-    big, host_check = big_boot_path(dev, step)
-    noise = noise_diag(held10, step)
-    cli = cli_diag(dev, step)
-    stats = stats_diag(held15, ctx16, step)
-    export = export_diag(held15, step)
-    with step("17a host-CPU check (wait)"):
-        host_check()
-    timers = step.report()
+    timing.tracing = True
+    try:
+        step = steps()
+        big, host_check = big_boot_path(dev, step)
+        noise = noise_diag(held10, step)
+        cli = cli_diag(dev, step)
+        stats = stats_diag(held15, ctx16, step)
+        export = export_diag(held15, step)
+        with step("17a host-CPU check (wait)"):
+            host_check()
+        timers = step.report()
+    finally:
+        timing.tracing = False
+        timing.reset_spans()
     print(json.dumps({"metric": "torch_cuda_diag_phase17", "big": big,
                       "noise": noise, "cli": cli, "stats": stats,
                       "export": export, "timers": timers, "card": card}))
@@ -2802,8 +2808,7 @@ def graph_row(label: str, graphs: dict, eager: dict, captures: int,
     row = {"path": label, "graphs": graphs, "eager": eager,
            "captures": captures,
            "pool_bytes": jitutil.pool_bytes(torch.device("cuda")),
-           "all_captures": jitutil.captures, "warmup_s": jitutil.warmup_s,
-           "capture_s": jitutil.capture_s, **extra}
+           "all_captures": jitutil.captures, **extra}
     GRAPH_ROWS.append(row)
     print(json.dumps({"metric": "torch_cuda_graphs_beside_eager", **row,
                       "card": card}))
@@ -3744,8 +3749,7 @@ def print_graph_rows() -> None:
               f"{row['pool_bytes'] / 2**20:.1f} MiB")
     from helib_tpu_torch import jitutil
     print(f"graphs: {jitutil.captures} captured in all, {jitutil.replays} "
-          f"replays; host s in warm-up calls {jitutil.warmup_s:.1f}, in "
-          f"captures {jitutil.capture_s:.1f}")
+          f"replays")
 
 
 def ptxas_summary(log: str) -> list:

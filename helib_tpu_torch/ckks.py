@@ -30,6 +30,7 @@ from . import dcrt
 from .dcrt import rt_mul, rt_add, sample_small, sample_gaussian, \
     small_coeffs_to_rt
 from .nt.numbth import inv_mod
+from . import timing
 
 
 def _decimal(f) -> str:
@@ -85,6 +86,7 @@ class EncryptedArrayCKKS:
         return np.real(b * zeta ** (-np.arange(N)))
 
     # ------------------------------------------------------------ encode
+    @timing.timed
     def encode(self, slots, scale: int | None = None):
         """-> (int coeffs [N] (object), scale, mag, rounding-noise log2)."""
         z = np.zeros(self.nslots, dtype=np.complex128)
@@ -95,7 +97,6 @@ class EncryptedArrayCKKS:
         mag = float(np.max(np.abs(z))) if len(s) else 0.0
         # rounding error <= 1/2 per coeff -> canonical bound
         err = self.ctx.noise_uniform(math.log2(0.5))
-        from . import timing
         if timing.fhe_stats:
             # noise-model validation: actual decode error of the rounded
             # encoding vs the bound just charged (reference
@@ -198,6 +199,7 @@ class EncryptedArrayCKKS:
         return self.decode(vals + noise, Fraction(ctxt.ratFactor))
 
     # --------------------------------------------------------- arithmetic
+    @timing.timed
     def mul_const(self, ctxt: Ctxt, values, scale: int | None = None):
         """Multiply by encoded constant slots."""
         coeffs, scale_v, mag, err = self.encode(values, scale)
@@ -217,6 +219,7 @@ class EncryptedArrayCKKS:
         out.ptxtMag = ctxt.ptxtMag * mag
         return out
 
+    @timing.timed
     def rescale(self, ctxt: Ctxt):
         """Drop to the natural level (divides the scale)."""
         ctxt.drop_special_primes()
@@ -226,6 +229,7 @@ class EncryptedArrayCKKS:
         return ctxt
 
     # ---------------------------------------------------------- rotations
+    @timing.timed
     def rotate(self, ctxt: Ctxt, amt: int, key):
         """Rotate the slots by amt (slot j -> slot j + amt), in place: the
         automorphism X -> X^k, k = 5^(-amt) mod m."""

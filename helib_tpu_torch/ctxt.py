@@ -25,6 +25,7 @@ from .dcrt import (rt_add, rt_neg, rt_mul, rt_mul_scalar, rt_automorph,
                    rt_scale_down, rt_add_special_and_scale,
                    rt_break_into_digits, small_coeffs_to_rt)
 from .keys import SKHandle, PubKey, KSMatrix, balanced_int, get_ks_matrix
+from .timing import stats_update, timed, timer
 from .ops.modops import mul_mod, add_mod, mul_mod_shoup, shoup, to_device
 from .nt.numbth import inv_mod
 from .exceptions import InvalidArgument, LogicError, OutOfRangeError
@@ -176,20 +177,22 @@ class Ctxt:
             new_parts.append((h, out))
         if measure:
             from .norms import embedding_largest_float_log2
-            measured = NEG_INF
-            for h, frac in fracs:
-                fr = frac.cpu().numpy()
-                if fr.ndim > 1:
-                    fr = fr.reshape(-1, fr.shape[-1])[0]
-                if not np.any(fr):
-                    continue
-                norm = embedding_largest_float_log2(fr, self.ctx.m,
-                                                    self.ctx.pal.pow2)
-                bound = norm + (h.powS * self.pubkey.sk_bound
-                                if not h.is_one else 0.0)
-                measured = log2_add(measured, bound)
-            if measured > NEG_INF:
-                added = min(added, measured)
+            with timer("Ctxt.mod_down_to.measure"):
+                measured = NEG_INF
+                for h, frac in fracs:
+                    with timer("Ctxt.mod_down_to.to_host"):
+                        fr = frac.cpu().numpy()
+                    if fr.ndim > 1:
+                        fr = fr.reshape(-1, fr.shape[-1])[0]
+                    if not np.any(fr):
+                        continue
+                    norm = embedding_largest_float_log2(fr, self.ctx.m,
+                                                        self.ctx.pal.pow2)
+                    bound = norm + (h.powS * self.pubkey.sk_bound
+                                    if not h.is_one else 0.0)
+                    measured = log2_add(measured, bound)
+                if measured > NEG_INF:
+                    added = min(added, measured)
         self.parts = new_parts
         self.k, self.special = new_k, new_special
         drop_bits -= self.log2_modulus()
@@ -241,6 +244,7 @@ class Ctxt:
         self.noise += math.log2(max(abs(lam), 1))
         self.intFactor = other.intFactor
 
+    @timed
     def add(self, other: "Ctxt", sub: bool = False):
         a, b = self, other.copy()
         tk = min(a.k, b.k)
@@ -319,6 +323,7 @@ class Ctxt:
                                 self.special))
         self.noise = log2_add(self.noise, ctx.noise_mod(pr))
 
+    @timed
     def mul_constant_poly(self, coeffs: np.ndarray,
                           mag: float | None = None):
         """Multiply by an encoded plaintext poly (balanced lift mod p^r)."""
@@ -421,6 +426,7 @@ class Ctxt:
         b.bring_to_k(tk)
         return a.tensor(b)
 
+    @timed
     def multiply(self, other: "Ctxt", key) -> "Ctxt":
         """key: a PubKey or SecKey holding the relinearization matrix."""
         out = self.mul_low_level(other)
@@ -461,7 +467,6 @@ class Ctxt:
             ks_noise = log2_add(ks_noise, digit_noise + W.noise)
         self.parts = list(acc.items())
         self.k, self.special = k, True
-        from .timing import stats_update
         if ks_noise > new_noise:
             from .log import warning
             warning(f"KS-noise-ratio={2.0**(ks_noise - new_noise):.2f}",
@@ -484,6 +489,7 @@ class Ctxt:
             for h, d in self.parts]
         return self
 
+    @timed
     def smart_automorph(self, kexp: int, key):
         """automorph + key switch back to (1, s); without an exact matrix
         the hop chain through the key's matrices (ksstrategy.hop_path) is

@@ -43,9 +43,10 @@ from __future__ import annotations
 
 import contextlib
 import gc
-import time
 
 import torch
+
+from .timing import timer
 
 _disabled = 0        # disable_jit() depth
 _tracing = 0         # runs warming up or capturing (their inner sites run fn)
@@ -53,8 +54,6 @@ _pools: dict = {}    # device index -> (graph_pool_handle(), its keeper)
 _streams: dict = {}  # device index -> the side stream of warm-ups and captures
 captures = 0         # graphs captured in this process
 replays = 0          # replays in this process
-warmup_s = 0.0       # host seconds in warm-up calls (the first call's work)
-capture_s = 0.0      # host seconds capturing and instantiating
 
 
 @contextlib.contextmanager
@@ -217,7 +216,7 @@ class _Graph:
     the launch counts one replay adds."""
 
     def __init__(self, fn, args, device):
-        global captures, warmup_s, capture_s
+        global captures
         counters = launch_counters()
         handle = pool(device)
         self.static_in = [a.clone() for a in args]
@@ -227,14 +226,12 @@ class _Graph:
         with torch.cuda.stream(side):
             # the warm-up: builds the kernels, fills the caches fn reads and
             # gives the first call's outputs (real launches, so counted)
-            t0 = time.perf_counter()
-            self.first = fn(*args)
-            t1 = time.perf_counter()
-            warmup_s += t1 - t0
+            with timer("jitutil.warmup"):
+                self.first = fn(*args)
             before = read_counts(counters)
             reserved = torch.cuda.memory_reserved(device)
             try:
-                with _no_gc():
+                with timer("jitutil.capture"), _no_gc():
                     self.graph.capture_begin(
                         pool=handle, capture_error_mode="thread_local")
                     try:
@@ -251,7 +248,6 @@ class _Graph:
                 # the capture launched nothing; a replay launches this
                 self.delta = count_delta(before, read_counts(counters))
                 set_counts(counters, before)
-        capture_s += time.perf_counter() - t1
         cur.wait_stream(side)
         self.leaves: list = []
         self.skel = _flatten(out, self.leaves)
@@ -260,12 +256,13 @@ class _Graph:
 
     def replay(self, args):
         global replays
-        for s, a in zip(self.static_in, args):
-            s.copy_(a)
-        self.graph.replay()
-        replays += 1
-        add_counts(launch_counters(), self.delta)
-        return _rebuild(self.skel, (t.clone() for t in self.leaves))
+        with timer("jitutil.replay"):
+            for s, a in zip(self.static_in, args):
+                s.copy_(a)
+            self.graph.replay()
+            replays += 1
+            add_counts(launch_counters(), self.delta)
+            return _rebuild(self.skel, (t.clone() for t in self.leaves))
 
 
 def _on_card(args) -> bool:

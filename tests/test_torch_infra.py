@@ -89,7 +89,8 @@ def test_argmap_parse_file(tmp_path):
     assert am.parse_file(str(path)) == {"m": 31, "p": 5, "verbose": True}
 
 
-def test_timers_count_and_accumulate():
+def test_timers_count_and_accumulate(monkeypatch):
+    monkeypatch.setattr(timing, "tracing", True)
     timing.reset_all_timers()
     for _ in range(3):
         with timing.timer("step"):
@@ -108,6 +109,7 @@ def test_timers_count_and_accumulate():
     timing.print_all_timers(buf)
     assert buf.getvalue().splitlines()[0].startswith("  step: ")
     timing.reset_all_timers()
+    timing.reset_spans()
     assert timing.get_timer("step") == (0, 0.0)
 
 
