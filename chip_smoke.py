@@ -4,10 +4,10 @@
 
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi);
-  2. build the five CUDA sources from ops/csrc (one nvcc per source,
+  2. build the six CUDA sources from ops/csrc (one nvcc per source,
      started together, sm_90a), timed, with every kernel's registers and
-     spills (each an instantiation of ntt_rows.cuh, printed as
-     ntt_rows_kernel<row map, mode, largest composite K, CTAs a row,
+     spills (the NTT family each an instantiation of ntt_rows.cuh, printed
+     as ntt_rows_kernel<row map, mode, largest composite K, CTAs a row,
      threads a CTA, minimum CTAs an SM>; K4 and K5 at K = 1, 2, 3);
   3. each kernel against its plain torch version on the card, bit for bit:
      K1 conv (and K5 at k = 3, the same code), n = 8 .. 32768; K2 ntt,
@@ -17,7 +17,14 @@ Phases, in order; any failure exits non-zero:
      last on 4-CTA clusters and on 2-CTA ones (conv_aux.cu's
      helib_conv_aux_launch_c2); K4 ntt2 at every k, n = 8 .. 65536, and K5
      conv2 at every k, n = 8 .. 32768, against their own plain versions and
-     K2's and K1's, K4 at k = 3 also against K2; P = 5 and 20;
+     K2's and K1's, K4 at k = 3 also against K2; P = 5 and 20; then
+     embed_max, the canonical-embedding max of the measured mod-switch
+     noise, against embed_max_plain and the host's FFT to 1e-12 relative at
+     every m the port runs eager BGV at (odd 31 .. 35113, powers of 2 64 ..
+     65536), its us a call at m = 8009 and 32003 beside its bound, the
+     plain version on the card and the host path it replaced, and its
+     launches over one eager BGV mult at m=8009 (2), lifted batched
+     mult+relin calls (0) and a CKKS mult+rescale at m=1024 (0);
   4. the BGV path -- batched mult+relin at m=8009, p=2, bits=380, c=3,
      batch 16 -- through K1 (and no other kernel), held against the same
      chain with the plain convolution and against the port on the host CPU,
@@ -206,6 +213,11 @@ the end.
 Phase 18's ranks start and set up while phase 19 runs, then run their
 timed parts.  `--parallel-only` runs the build, phases 3 and 4 and then
 phases 19 and 18 alone; `--probes-only` the build, phase 3 and phase 11.
+The counts include embed_max's: every eager BGV path that measures its
+mod-switch noise (the slot phase, the bootstraps, the circuits) launches it
+once a measured mod-down, beside its transform kernel, and prints the
+count; the plain-chain reruns take its plain version too, so they launch
+nothing.
 Each path, each op and the probe run is driven with the launch
 counts set to 0 just before it and read just after; the counts include the
 staged transforms, which phases 1-16 must leave at 0, and the sharded ones,
@@ -506,6 +518,13 @@ def plain(mod, name: str, repl) -> swap:
     return swap(mod, name, repl, eager=True)
 
 
+def plain_noise() -> swap:
+    """The noise measurement's plain embed_max in the kernel's place, so a
+    plain-chain rerun of an eager BGV path launches no kernel at all."""
+    from helib_tpu_torch.ops import embed_max
+    return swap(embed_max, "embed_max_cuda", embed_max.embed_max_plain)
+
+
 def capture(mod, name: str) -> swap:
     """swap() that passes every call through and keeps its arguments in
     `.calls`, every site eager."""
@@ -522,11 +541,11 @@ def capture(mod, name: str) -> swap:
 
 def _launch_counters() -> dict:
     """name -> the wrapper whose `.launches` counts that kernel."""
-    from helib_tpu_torch.ops import conv, ntt2, ntt_fused, probes
+    from helib_tpu_torch.ops import conv, embed_max, ntt2, ntt_fused, probes
     return {"conv": conv.conv_cuda, "ntt": ntt_fused.ntt_cuda,
             "conv_aux": conv.conv_aux_cuda, "ntt2": ntt2.ntt2_cuda,
             "conv2": ntt2.conv2_cuda, "p1": probes.p1_cuda,
-            "p2": probes.p2_cuda}
+            "p2": probes.p2_cuda, "embed_max": embed_max.embed_max_cuda}
 
 
 # staged transforms (ops/ntt.py: the sizes above the kernels' 2^16) and
@@ -570,12 +589,20 @@ def sharded_since_start() -> int:
     return _sharded_seen + sharded_ntt.sharded_transforms
 
 
-def expect_only(launches: dict, name: str, what: str):
-    """Fails unless `name` launched and no other kernel did."""
+def expect_only(launches: dict, name: str, what: str, allow=()):
+    """Fails unless `name` launched and no other kernel did, bar those
+    named in `allow` (embed_max on the eager BGV paths that measure their
+    mod-switch noise)."""
     if launches[name] == 0 or any(v for k, v in launches.items()
-                                  if k != name):
+                                  if k != name and k not in allow):
+        bar = f" bar {', '.join(allow)}" if allow else ""
         raise AssertionError(f"{what} must launch {name} and no other "
-                             f"kernel: {launches}")
+                             f"kernel{bar}: {launches}")
+
+
+# what an eager BGV path launches beside its transforms: embed_max, once a
+# measured mod-down (Ctxt.mod_down_to's noise)
+NOISE = ("embed_max",)
 
 
 def check_outputs(out, ctx, batch: int | None, dev):
@@ -613,6 +640,155 @@ def once_a_call(fn, args, first, launches: dict, label: str):
           f"{fn.pool_bytes} bytes added to the pool by its capture), its "
           f"counts those of the eager call; bit-identical to the same call "
           f"under disable_jit()")
+
+
+# ---------------------------------------------------------------------------
+# embed_max: the canonical-embedding max of the measured mod-switch noise
+# ---------------------------------------------------------------------------
+
+# every m at which the port runs eager BGV: odd (rows of m coefficients)
+# and power-of-2 (rows of m/2)
+EMBED_MS = (31, 1271, 4095, 8009, 31775, 32003, 35113, 64, 256, 1024,
+            65536)
+# float64 outside the tensor cores (H100 SXM data sheet, 700 W)
+FP64_FLOP_PER_S = 34e12
+
+
+def embed_rows(m: int, R: int, seed: int, dev):
+    """The tables and R seeded float32 rows of balanced remainders in
+    [-1/2, 1/2) at m."""
+    from helib_tpu_torch.ops.embed_max import embed_tables
+    n = m // 2 if m & (m - 1) == 0 else m
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((rng.random((R, n)) - 0.5).astype(np.float32))
+    return x.to(dev), embed_tables(m, n, dev)
+
+
+def embed_bound_ms(x, tab) -> tuple[float, float]:
+    """(bytes, operations) bound of one embed_max call in ms: the rows and
+    tables read once and the maxima written; per row two complex FFTs of L
+    points (5 L log2 L flops each), the chirp, twiddle and bhat products
+    and the magnitudes."""
+    R, n = x.shape
+    m, log_l = tab["m"], tab["log_l"]
+    L = 1 << log_l
+    nbytes = 4 * R * n + 16 * (n + 2 * L) + m + 8 * R
+    flops = R * (10 * L * log_l + 2 * n + 18 * L + 3 * m)
+    return nbytes / HBM_BYTES_PER_S * 1e3, flops / FP64_FLOP_PER_S * 1e3
+
+
+def embed_max_path(dev, card: str) -> dict:
+    """embed_max against embed_max_plain on the card (and the host's FFT,
+    norms._largest) at every m of EMBED_MS, to 1e-12 relative, a zero row
+    reading 0; its time a call at m = 8009 and 32003 on two rows beside its
+    bound, the plain version on the card and the host path it replaced;
+    its launches over one eager BGV mult at m = 8009 (2: one a measured
+    mod-down), a lifted batched mult+relin there and an eager CKKS
+    mult+rescale at m = 1024 (0 each).  Returns the kernels-line row at
+    m = 8009."""
+    from helib_tpu_torch.context import Context
+    from helib_tpu_torch.keys import PubKey, SecKey, SKHandle
+    from helib_tpu_torch.norms import _largest
+    from helib_tpu_torch.ops.embed_max import embed_max_cuda, embed_max_plain
+    from helib_tpu_torch.pipeline import make_batched_mult_relin
+    from helib_tpu_torch import jitutil
+
+    worst = worst_host = 0.0
+    for m in EMBED_MS:
+        x, tab = embed_rows(m, 3, seed=m, dev=dev)
+        x[-1] = 0.0
+        got = embed_max_cuda(x, tab)
+        want = embed_max_plain(x, tab)
+        torch.cuda.synchronize()
+        if got[-1].item() != 0.0:
+            raise AssertionError(f"embed_max at m={m}: a zero row read "
+                                 f"{got[-1].item()}")
+        rel = float(((got - want).abs() / want.clamp_min(1e-300))[:-1].max())
+        host = [_largest(r.cpu().numpy().astype(np.float64), m,
+                         m & (m - 1) == 0) for r in x[:-1]]
+        rel_host = max(abs(g - h) / h for g, h in zip(got.tolist(), host))
+        if rel > 1e-12 or rel_host > 1e-12:
+            raise AssertionError(f"embed_max at m={m}: {rel:.3g} from the "
+                                 f"plain version, {rel_host:.3g} from the "
+                                 f"host FFT")
+        worst, worst_host = max(worst, rel), max(worst_host, rel_host)
+    print(f"embed_max: == embed_max_plain at m = "
+          f"{', '.join(map(str, EMBED_MS))} (3 rows, the last zero, which "
+          f"reads 0): max rel err {worst:.3g}; {worst_host:.3g} from the "
+          f"host FFT (norms._largest)")
+
+    rows = {}
+    for m in (8009, 32003):
+        x, tab = embed_rows(m, 2, seed=m + 1, dev=dev)
+        us = event_ms(lambda: embed_max_cuda(x, tab), reps=100) * 1e3
+        plain_us = event_ms(lambda: embed_max_plain(x, tab), reps=20) * 1e3
+        t0 = time.perf_counter()
+        for _ in range(50):
+            embed_max_cuda(x, tab).cpu()
+        call_us = (time.perf_counter() - t0) / 50 * 1e6
+        t0 = time.perf_counter()
+        for _ in range(10):
+            for r in x:
+                _largest(r.cpu().numpy().astype(np.float64), m, False)
+        host_us = (time.perf_counter() - t0) / 10 * 1e6
+        bb, bo = embed_bound_ms(x, tab)
+        rows[m] = {"us": us, "plain_us": plain_us, "call_us": call_us,
+                   "host_us": host_us, "bound_us": max(bb, bo) * 1e3,
+                   "bound_by": "bytes" if bb >= bo else "operations"}
+        print(f"embed_max: m={m}, 2 rows, L = 2^{tab['log_l']}: "
+              f"{us:.2f} us a call on the card (3 launches), bound "
+              f"{max(bb, bo) * 1e3:.3f} us "
+              f"({rows[m]['bound_by']}); a call and its .cpu() "
+              f"{call_us:.1f} us on the host clock; the plain version on the "
+              f"card {plain_us:.1f} us; the host path it replaced (.cpu() "
+              f"and norms._largest a row) {host_us:.1f} us")
+
+    ctx = Context(m=M, p=P_PLAIN, r=1, bits=BITS, c=C, device=dev)
+    sk = SecKey(ctx, seed=SEED)
+    pk = PubKey(sk)
+    sk.gen_ks_matrix(SKHandle(2, 1, 0))
+    rng = np.random.default_rng(SEED + 2)
+    a, b = (pk.encrypt_bgv(rng.integers(0, 2, ctx.phi_m), rng)
+            for _ in range(2))
+    a.multiply(b, pk)          # warm: the tables and the graphs
+    torch.cuda.synchronize()
+    reset_launches()
+    a.multiply(b, pk)
+    torch.cuda.synchronize()
+    bgv = read_launches()["embed_max"]
+    fn, args = make_batched_mult_relin(ctx, sk, 2)
+    fn = jitutil.lifted_jit(fn, *args)
+    reset_launches()
+    fn(*args)
+    fn(*args)
+    torch.cuda.synchronize()
+    batched = read_launches()["embed_max"]
+    del fn, args, ctx, sk, pk, a, b
+    from helib_tpu_torch.ckks import EncryptedArrayCKKS
+    cc = Context(m=1024, p=-1, r=30, bits=240, c=3, scheme="ckks",
+                 device=dev)
+    csk = SecKey(cc, seed=SEED)
+    cpk = PubKey(csk)
+    csk.gen_ks_matrix(SKHandle(2, 1, 0))
+    cea = EncryptedArrayCKKS(cc)
+    z = cea.encrypt(np.ones(cea.nslots), cpk, np.random.default_rng(SEED))
+    reset_launches()
+    cea.rescale(z.multiply(z, cpk))
+    torch.cuda.synchronize()
+    ckks = read_launches()["embed_max"]
+    print(f"embed_max: launches over one eager BGV mult at m={M}: {bgv}; "
+          f"two lifted batched mult+relin calls: {batched}; one CKKS "
+          f"mult+rescale at m=1024: {ckks}")
+    if (bgv, batched, ckks) != (2, 0, 0):
+        raise AssertionError("embed_max: expected 2 launches a BGV mult, "
+                             "none batched or in CKKS")
+    r = rows[8009]
+    return {"name": "embed_max", "route": "cuda",
+            "source": "helib_tpu_torch/ops/csrc/embed_max.cu",
+            "replaces": "none (helib_tpu's host FFT, norms._largest)",
+            "launches": bgv, "max_rel_err": worst, "ms": r["us"] / 1e3,
+            "plain_ms": r["plain_us"] / 1e3, "bound_ms": r["bound_us"] / 1e3,
+            "bound_by": r["bound_by"], "library_ms": None}
 
 
 def main_path(dev):
@@ -1237,14 +1413,15 @@ def slot_path(dev, card: str, perop_host) -> dict:
             raise AssertionError(f"slots {name}: decrypt oracle failed")
 
     def run(name, f, want=None, warm: bool = True):
-        """f() once with the counts reset (K3 alone, or nothing), its
-        decrypt checked against the oracle; then WARM_REPS times more,
-        warm (the counts are of one run)."""
+        """f() once with the counts reset (K3 and the noise's embed_max
+        alone, or nothing), its decrypt checked against the oracle; then
+        WARM_REPS times more, warm (the counts are of one run)."""
         reset_launches()
         caps = jitutil.captures
         out, cold_h, cold_e = timed(f)
         c = read_launches()
-        if any(v for key, v in c.items() if key != "conv_aux"):
+        if any(v for key, v in c.items() if key != "conv_aux"
+               and key not in NOISE):
             raise AssertionError(f"slots {name}: launched {c}")
         for key, v in c.items():
             total[key] = total.get(key, 0) + v
@@ -1252,6 +1429,7 @@ def slot_path(dev, card: str, perop_host) -> dict:
             check(name, out, want)
         ms[name] = {"cold_host": cold_h, "cold_event": cold_e}
         counts[name] = {"cold": c["conv_aux"],
+                        "embed_max": c["embed_max"],
                         "captures": jitutil.captures - caps}
         if warm:
             reset_launches()
@@ -1287,7 +1465,7 @@ def slot_path(dev, card: str, perop_host) -> dict:
     rep = want.copy()
     rep.slots = [want.slots[7].copy() for _ in want.slots]
     run("replicate", lambda: replicate(ea, c3.copy(), 7, sk), rep)
-    expect_only(total, "conv_aux", "slot phase")
+    expect_only(total, "conv_aux", "slot phase", NOISE)
     if len(sk.matrices) != minted:
         raise AssertionError(f"slots: {len(sk.matrices) - minted} matrices "
                              f"minted during the ops")
@@ -1301,7 +1479,7 @@ def slot_path(dev, card: str, perop_host) -> dict:
     saved = ea._mask_cache
     ea._mask_cache = {k: v for k, v in saved.items()
                       if isinstance(v, np.ndarray)}
-    with plain(convmod, "conv_aux", convmod.conv_aux_plain):
+    with plain(convmod, "conv_aux", convmod.conv_aux_plain), plain_noise():
         reset_launches()
         ref = ea.rotate(c3.copy(), 1, sk)
         torch.cuda.synchronize()
@@ -1578,9 +1756,9 @@ def boot_path(ctx, sk, pk, ea, card: str, slots_host) -> dict:
     out, h, e = timed(lambda: rec.thin_recrypt(low, rc, sk))
     caps = jitutil.captures - caps
     c = read_launches()
-    expect_only(c, "conv_aux", "boot cold")
+    expect_only(c, "conv_aux", "boot cold", NOISE)
     cold = {"host_ms": h, "event_ms": e, "conv_aux": c["conv_aux"],
-            "captures": caps,
+            "embed_max": c["embed_max"], "captures": caps,
             "capacity": boot_check("cold", ea, sk, low, out, slots, sk)}
     minted = len(sk.matrices)
     slots_host()
@@ -1599,8 +1777,9 @@ def boot_path(ctx, sk, pk, ea, card: str, slots_host) -> dict:
     with marks:
         out_warm, h, e = timed(lambda: rec.thin_recrypt(low, rc, pk))
     c = read_launches()
-    expect_only(c, "conv_aux", "boot warm (PubKey)")
+    expect_only(c, "conv_aux", "boot warm (PubKey)", NOISE)
     warm = {"host_ms": h, "event_ms": e, "conv_aux": c["conv_aux"],
+            "embed_max": c["embed_max"],
             "capacity": boot_check("warm (PubKey)", ea, sk, low, out_warm,
                                    slots, pk)}
     stages = marks.ms()
@@ -1625,7 +1804,8 @@ def boot_path(ctx, sk, pk, ea, card: str, slots_host) -> dict:
                 lambda: held.append(rec.thin_recrypt(low, rc, pk)), (),
                 f"bgv thin bootstrap m=31775, warm, "
                 f"{'eager' if eager else 'graphs'}", warmup=False)
-        expect_only(read_launches(), "conv_aux", "boot warm (profiled)")
+        expect_only(read_launches(), "conv_aux", "boot warm (profiled)",
+                    NOISE)
         same_parts(out_warm, held[0], "boot: the profiled run != the timed "
                    "run")
         del held
@@ -1649,7 +1829,8 @@ def boot_path(ctx, sk, pk, ea, card: str, slots_host) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2**30
     t0 = time.time()
     caps = jitutil.captures
-    with swap(convmod, "conv_aux", convmod.conv_aux_plain), plain_fats(fats):
+    with swap(convmod, "conv_aux", convmod.conv_aux_plain), plain_fats(
+            fats), plain_noise():
         reset_launches()
         ref = rec.thin_recrypt(low, rc, pk)
         torch.cuda.synchronize()
@@ -1734,18 +1915,21 @@ def tiny_boot_path(dev, card: str) -> dict:
             with smp if which == "eager" else contextlib.nullcontext():
                 out, h, e = timed(lambda: fn(low, rc, key))
             c = read_launches()
-            expect_only(c, "conv_aux", f"boot m=1271 {name} {which}")
+            expect_only(c, "conv_aux", f"boot m=1271 {name} {which}",
+                        NOISE)
             if which != "cold" and len(sk.matrices) != n:
                 raise AssertionError(f"boot m=1271 {name}: the PubKey run "
                                      f"minted")
             cap = boot_check(f"m=1271 {name} {which}", ea, sk, low, out,
                              slots, key, fat)
             r[which] = {"host_ms": h, "event_ms": e,
-                        "conv_aux": c["conv_aux"], "capacity": cap,
+                        "conv_aux": c["conv_aux"],
+                        "embed_max": c["embed_max"], "capacity": cap,
                         "captures": jitutil.captures - caps}
             if which == "eager":
                 same_outputs(warm_out, out, f"boot m=1271 {name} warm")
-                if c["conv_aux"] != r["warm"]["conv_aux"]:
+                if (c["conv_aux"], c["embed_max"]) != (
+                        r["warm"]["conv_aux"], r["warm"]["embed_max"]):
                     raise AssertionError(f"boot m=1271 {name}: the eager "
                                          f"run launched {c}")
             warm_out = out
@@ -1997,13 +2181,13 @@ def circuits_path(dev, card: str) -> dict:
         out, cold_h, cold_e = timed(f)
         caps = jitutil.captures - caps
         c = read_launches()
-        expect_only(c, "conv_aux", f"circuits {name}")
+        expect_only(c, "conv_aux", f"circuits {name}", NOISE)
         if not np.array_equal(dec(out), want):
             raise AssertionError(f"circuits {name}: decrypt != numpy")
         reset_launches()
         warm, warm_h, warm_e = timed(f)
         cw = read_launches()
-        expect_only(cw, "conv_aux", f"circuits {name} warm")
+        expect_only(cw, "conv_aux", f"circuits {name} warm", NOISE)
         res[name] = {"cold_host_ms": cold_h, "cold_event_ms": cold_e,
                      "warm_host_ms": warm_h, "warm_event_ms": warm_e}
         if name in EAGER_OPS:
@@ -2021,7 +2205,8 @@ def circuits_path(dev, card: str) -> dict:
         total += c["conv_aux"]
         cts = out if isinstance(out, list) else [out]
         outs[name] = out
-        res[name].update(conv_aux=c["conv_aux"], captures=caps,
+        res[name].update(conv_aux=c["conv_aux"], embed_max=c["embed_max"],
+                         captures=caps,
                          capacity=min(x.capacity() for x in cts))
         print(f"circuits: {name} {json.dumps(res[name])}")
     # repack of the unpacked ciphertexts
@@ -2029,11 +2214,11 @@ def circuits_path(dev, card: str) -> dict:
     reset_launches()
     back, h, e = timed(lambda: intraslot.repack(ea, parts))
     c = read_launches()
-    expect_only(c, "conv_aux", "circuits repack")
+    expect_only(c, "conv_aux", "circuits repack", NOISE)
     if not np.array_equal(sk.decrypt_bgv(back), ea.encode(full)):
         raise AssertionError("circuits repack: decrypt != the full slots")
     res["repack"] = {"cold_host_ms": h, "cold_event_ms": e,
-                     "conv_aux": c["conv_aux"],
+                     "conv_aux": c["conv_aux"], "embed_max": c["embed_max"],
                      "capacity": back.capacity()}
     total += c["conv_aux"]
     if len(sk.matrices) != minted:
@@ -2046,7 +2231,7 @@ def circuits_path(dev, card: str) -> dict:
         res["add_two_numbers 8+8"]["captures"], card)
 
     # the permutation with the plain K3
-    with plain(convmod, "conv_aux", convmod.conv_aux_plain):
+    with plain(convmod, "conv_aux", convmod.conv_aux_plain), plain_noise():
         reset_launches()
         ref = pp.apply(cbits, pk)
         torch.cuda.synchronize()
@@ -3506,7 +3691,8 @@ def _boot_rank(dev):
     """18e: the dry run's thin bootstrap at m=1271 (A = 2) on the sharded
     transforms, with the PubKey after one unsharded cold run with the
     SecKey has minted the matrices (in the setup); it decrypts to its slots
-    with capacity restored, launches no kernel and equals the unsharded
+    with capacity restored, launches no kernel bar the noise's embed_max
+    and equals the unsharded
     warm run on rank 0 alone; returns the run."""
     import torch.distributed as dist
     from helib_tpu_torch.context import Context
@@ -3542,7 +3728,8 @@ def _boot_rank(dev):
         warm, st, _ = rank_op(lambda c: thin_recrypt(c, rc, pk), (ct,))
         ctx.disable_sharded_transforms()
         if st["launches"]["sharded"] == 0 or any(
-                v for k, v in st["launches"].items() if k != "sharded"):
+                v for k, v in st["launches"].items()
+                if k != "sharded" and k not in NOISE):
             raise AssertionError(f"phase 18e: launched {st['launches']}")
         res["warm"] = st
         res["capacity"] = (ct.capacity(), check(warm, "warm"))
@@ -3806,7 +3993,7 @@ def main(argv=None) -> int:
     set_v2(False)
 
     start = time.time()
-    sources = ("conv", "ntt", "conv_aux", "ntt2", "probes")
+    sources = ("conv", "ntt", "conv_aux", "ntt2", "probes", "embed_max")
     _build.build(*sources)
     print(f"build: {', '.join(s + '.cu' for s in sources)} in "
           f"{time.time() - start:.1f} s")
@@ -3834,6 +4021,8 @@ def main(argv=None) -> int:
           f"{rows} rows (n = 8 .. 32768, P = 5 and 20, every k, "
           f"max |err| = {err})")
 
+    embed_row = embed_max_path(dev, card)
+
     if opts.probes_only:
         probe_path(dev, card)
         print(card)
@@ -3851,7 +4040,7 @@ def main(argv=None) -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
-    kernels = {"conv": measure(
+    kernels = {"embed_max": embed_row, "conv": measure(
         fn, args, launches, "conv",
         "torch_cuda_mult_relin_ops_per_s_m8009_b380_batch16", "bgv", card)}
     from helib_tpu_torch.ops.ntt2 import conv2_cuda
@@ -3939,7 +4128,7 @@ def main(argv=None) -> int:
     print_graph_rows()
     print(card)
     order = ("conv", "ntt", "conv_aux", "ntt2", "conv2", "p1", "p2",
-             "p2_65536")
+             "p2_65536", "embed_max")
     print(json.dumps({"kernels": [kernels[k] for k in order]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,6 +26,7 @@ from .dcrt import (rt_add, rt_neg, rt_mul, rt_mul_scalar, rt_automorph,
                    rt_break_into_digits, small_coeffs_to_rt)
 from .keys import SKHandle, PubKey, KSMatrix, balanced_int, get_ks_matrix
 from .timing import stats_update, timed, timer
+from .ops.embed_max import embed_max, embed_tables
 from .ops.modops import mul_mod, add_mod, mul_mod_shoup, shoup, to_device
 from .nt.numbth import inv_mod
 from .exceptions import InvalidArgument, LogicError, OutOfRangeError
@@ -147,8 +148,10 @@ class Ctxt:
         """Real modulus switching down (reference Ctxt::modDownToSet).
 
         measure=True (the eager default, as in helib_tpu) also measures the
-        BGV mod-switch rounding noise from the scale-down remainder: one
-        host transfer and FFT per part, of the first batch element.
+        BGV mod-switch rounding noise from the scale-down remainder of the
+        first batch element: the canonical-embedding max of every part's
+        remainder in one ops.embed_max call (the kernel on the card), one
+        float64 a part read back in one copy.
         Pipelines pass measure=False, which is what helib_tpu does under a
         jit trace; HELIB_EXACT_MODSWITCH=0 turns it off everywhere (the
         worst-case bound alone), as in helib_tpu.  CKKS is never measured,
@@ -176,20 +179,21 @@ class Ctxt:
                 fracs.append((h, frac))
             new_parts.append((h, out))
         if measure:
-            from .norms import embedding_largest_float_log2
             with timer("Ctxt.mod_down_to.measure"):
+                rows = torch.stack([f.reshape(-1, f.shape[-1])[0]
+                                    for _, f in fracs])
+                n = rows.shape[-1]
+                tab = self.ctx.cached(("embed_max", n), lambda: embed_tables(
+                    self.ctx.m, n, rows.device))
+                maxima = embed_max(rows, tab)
+                with timer("Ctxt.mod_down_to.to_host"):
+                    maxima = maxima.cpu().tolist()
                 measured = NEG_INF
-                for h, frac in fracs:
-                    with timer("Ctxt.mod_down_to.to_host"):
-                        fr = frac.cpu().numpy()
-                    if fr.ndim > 1:
-                        fr = fr.reshape(-1, fr.shape[-1])[0]
-                    if not np.any(fr):
+                for (h, _), mx in zip(fracs, maxima):
+                    if mx == 0.0:
                         continue
-                    norm = embedding_largest_float_log2(fr, self.ctx.m,
-                                                        self.ctx.pal.pow2)
-                    bound = norm + (h.powS * self.pubkey.sk_bound
-                                    if not h.is_one else 0.0)
+                    bound = math.log2(mx) + (h.powS * self.pubkey.sk_bound
+                                             if not h.is_one else 0.0)
                     measured = log2_add(measured, bound)
                 if measured > NEG_INF:
                     added = min(added, measured)

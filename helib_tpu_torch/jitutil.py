@@ -83,14 +83,15 @@ def launch_counters() -> list:
     launch: each kernel wrapper's `.launches`, ops.ntt.staged_transforms and
     parallel.sharded_ntt.sharded_transforms."""
     if not _counters:
-        from .ops import conv, ntt, ntt2, ntt_fused, probes
+        from .ops import conv, embed_max, ntt, ntt2, ntt_fused, probes
         from .parallel import sharded_ntt
         _counters.extend([
             (conv.conv_cuda, "launches"), (conv.conv_aux_cuda, "launches"),
             (ntt_fused.ntt_cuda, "launches"), (ntt2.ntt2_cuda, "launches"),
             (ntt2.conv2_cuda, "launches"), (probes.p1_cuda, "launches"),
-            (probes.p2_cuda, "launches"), (ntt, "staged_transforms"),
-            (sharded_ntt, "sharded_transforms")])
+            (probes.p2_cuda, "launches"),
+            (embed_max.embed_max_cuda, "launches"),
+            (ntt, "staged_transforms"), (sharded_ntt, "sharded_transforms")])
     return _counters
 
 

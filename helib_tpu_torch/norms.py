@@ -3,10 +3,11 @@
 `embeddingLargestCoeff` (reference norms.h:85) = L-infinity norm of the
 canonical embedding: max_j |f(zeta_m^j)| over primitive m-th roots of unity.
 Host-side complex FFT; used by noise measurement (SecKey.noise_of,
-debugging.check_noise, the fhe_stats ratios), the "Bounded" rejection
+debugging.check_noise, the fhe_stats ratios) and the "Bounded" rejection
 samplers (reference sample.cpp `sampleSmallBounded` etc., which resample
-until the canonical norm is below a high-probability bound) and the
-measured mod-switch noise.
+until the canonical norm is below a high-probability bound).  The measured
+mod-switch noise (Ctxt.mod_down_to) takes the same max of float rows
+through ops.embed_max, on the card.
 """
 
 from __future__ import annotations
@@ -48,12 +49,6 @@ def embedding_largest_coeff(coeffs, m: int, pow2: bool) -> float:
 
 def embedding_largest_coeff_log2(coeffs, m: int, pow2: bool) -> float:
     return _log2(embedding_largest_coeff(coeffs, m, pow2))
-
-
-def embedding_largest_float_log2(arr, m: int, pow2: bool) -> float:
-    """The same spectrum max for FLOAT coefficient vectors (the exact
-    mod-switch measurement, whose delta/D coefficients are O(1) reals)."""
-    return _log2(_largest(np.asarray(arr, dtype=np.float64), m, pow2))
 
 
 def embedding_norm_log2_scaled(mant: np.ndarray, exp2: np.ndarray,

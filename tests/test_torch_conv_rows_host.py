@@ -29,9 +29,11 @@ torch.set_num_threads(1)
 
 CUDA_RUNTIME_H = r"""
 #pragma once
+#include <atomic>
 #include <barrier>
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
 #include <memory>
 #include <thread>
 #include <vector>
@@ -93,6 +95,19 @@ inline uint32_t __umulhi(uint32_t a, uint32_t b) {
   return static_cast<uint32_t>((static_cast<uint64_t>(a) * b) >> 32);
 }
 template <class T> inline T __ldg(const T* p) { return *p; }
+inline long long __double_as_longlong(double d) {
+  long long v;
+  std::memcpy(&v, &d, sizeof v);
+  return v;
+}
+inline unsigned long long atomicMax(unsigned long long* p,
+                                    unsigned long long v) {
+  std::atomic_ref<unsigned long long> a(*p);
+  unsigned long long old = a.load();
+  while (old < v && !a.compare_exchange_weak(old, v)) {
+  }
+  return old;
+}
 template <class F> cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute,
                                                     int) {
   return cudaSuccess;
@@ -255,7 +270,7 @@ def build_host_libs(tmp_path_factory, label: str, names, harness: str):
         text = open(os.path.join(CSRC, name)).read()
         if name == "ntt_rows.cuh":
             assert text.count(SHARED_DECL) == 1
-            text = text.replace(SHARED_DECL, "uint32_t* s = stub::smem();")
+        text = text.replace(SHARED_DECL, "uint32_t* s = stub::smem();")
         (src / name).write_text(text)
     (src / "harness.cu").write_text(harness)
     jobs = {}

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (K1 conv, K2 ntt, K3 conv_aux, K4 ntt2, K5
-conv2, the probes P1 and P2) and its BGV and CKKS paths (CKKS at m=1024
-and m=131072), the BGV slot layer and the thin bootstrap at m=1271 on the
+conv2, the probes P1 and P2, embed_max) and its BGV and CKKS paths (CKKS
+at m=1024 and m=131072), the BGV measured mod-switch noise at m=31 and
+m=8009, the BGV slot layer and the thin bootstrap at m=1271 on the
 card, against the plain torch versions and the port on the CPU; the sizes
 above the kernels' 2^16 (BGV m=35113, CKKS m=262144) on the staged
 transforms, and the command-line utilities on the card.  The twins of
@@ -97,6 +98,62 @@ def test_conv_kernel_equals_conv2_at_k3(gpu, n):
     got = conv_cuda(*args)
     assert torch.equal(got, ntt2.conv2_cuda(*args, 3))
     assert torch.equal(got, conv_plain(*args))
+
+
+# every m at which the port runs eager BGV: rows of m coefficients at odd
+# m, m/2 at a power of 2
+EMBED_MS = [31, 1271, 4095, 8009, 31775, 32003, 35113, 64, 256, 1024, 65536]
+
+
+@pytest.mark.parametrize("m", EMBED_MS)
+def test_embed_max_kernel_matches_plain_on_gpu(gpu, m):
+    """The noise measurement's canonical-embedding max: three rows, the
+    last zero (reads 0), to 1e-12 relative of the plain version; one
+    counted launch a call."""
+    from helib_tpu_torch.ops import embed_max as em
+    n = m // 2 if m & (m - 1) == 0 else m
+    rng = np.random.default_rng(m)
+    x = torch.from_numpy((rng.random((3, n)) - 0.5).astype(np.float32))
+    x[-1] = 0.0
+    tab = em.embed_tables(m, n, gpu)
+    before = em.embed_max_cuda.launches
+    got = em.embed_max(x.to(gpu), tab)
+    torch.cuda.synchronize()
+    assert em.embed_max_cuda.launches == before + 1
+    want = em.embed_max_plain(x.to(gpu), tab)
+    assert got[-1].item() == 0.0
+    assert torch.allclose(got, want, rtol=1e-12, atol=0.0)
+
+
+@pytest.mark.parametrize("params", [dict(m=31, p=2, r=1, bits=300, c=3),
+                                    dict(m=8009, p=2, r=1, bits=380, c=3)])
+def test_measured_mod_down_on_gpu_equals_cpu_port(gpu, params, monkeypatch):
+    """Measurement on: the noise after dropping one ciphertext prime, then
+    two more, on the card equals the port's on the host (which
+    test_torch_embed_max holds to helib_tpu's) within 1e-9, with the same
+    residues, one embed_max launch a mod-down on the card and none on the
+    host (keys and encryption are host-seeded, so the same on both)."""
+    from helib_tpu_torch.ops import embed_max as em
+    monkeypatch.delenv("HELIB_EXACT_MODSWITCH", raising=False)
+
+    def encrypted(ctx):
+        pk = PubKey(SecKey(ctx, seed=7))
+        pt = np.random.default_rng(2).integers(0, 2, ctx.phi_m)
+        return pk.encrypt_bgv(pt, np.random.default_rng(5))
+
+    ct = encrypted(Context(**params))
+    host = encrypted(Context(**params, device="cpu"))
+    for (_, a), (_, b) in zip(ct.parts, host.parts):
+        assert torch.equal(a.cpu(), b)
+    for target in (ct.k - 1, ct.k - 3):
+        before = em.embed_max_cuda.launches
+        ct.mod_down_to(target, False)
+        assert em.embed_max_cuda.launches == before + 1
+        host.mod_down_to(target, False)
+        assert em.embed_max_cuda.launches == before + 1
+        assert abs(ct.noise - host.noise) <= 1e-9
+        for (_, a), (_, b) in zip(ct.parts, host.parts):
+            assert torch.equal(a.cpu(), b)
 
 
 def test_batched_mult_relin_on_gpu_equals_cpu_port(gpu):

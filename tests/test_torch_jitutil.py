@@ -112,17 +112,19 @@ def test_counter_replay_adds_the_capture_deltas():
 
 
 def test_launch_counters_are_the_ports_counts():
-    from helib_tpu_torch.ops import conv, ntt, ntt2, ntt_fused, probes
+    from helib_tpu_torch.ops import (conv, embed_max, ntt, ntt2, ntt_fused,
+                                     probes)
     from helib_tpu_torch.parallel import sharded_ntt
     held = {(id(h), a) for h, a in jitutil.launch_counters()}
     for h, a in [(conv.conv_cuda, "launches"), (conv.conv_aux_cuda,
                  "launches"), (ntt_fused.ntt_cuda, "launches"),
                  (ntt2.ntt2_cuda, "launches"), (ntt2.conv2_cuda, "launches"),
                  (probes.p1_cuda, "launches"), (probes.p2_cuda, "launches"),
+                 (embed_max.embed_max_cuda, "launches"),
                  (ntt, "staged_transforms"),
                  (sharded_ntt, "sharded_transforms")]:
         assert (id(h), a) in held
-    assert len(held) == 9
+    assert len(held) == 10
 
 
 def test_dispatch_key_follows_a_swapped_kernel_and_v2(monkeypatch):
