@@ -441,6 +441,7 @@ class Ctxt:
         return self.multiply(self, key)
 
     # ------------------------------------------------------- key switching
+    @timed
     def relinearize(self, key, to_key: int = 0):
         """Reference Ctxt::reLinearize: mod-up by the special primes,
         key-switch every non-canonical part, leave the specials in."""

@@ -44,9 +44,11 @@ def shoup(w, q) -> np.ndarray:
 
 
 def to_device(a, device) -> torch.Tensor:
-    """Host uint32 array -> int32 tensor with the same bits on `device`."""
-    a = np.ascontiguousarray(np.asarray(a, dtype=np.uint32))
-    return torch.from_numpy(a.view(np.int32).copy()).to(device)
+    """Host uint32 array -> int32 tensor with the same bits on `device`,
+    sharing no memory with `a` (the upload to a card is the one copy)."""
+    a = np.require(a, np.uint32, ("C", "W")).view(np.int32)
+    t = torch.from_numpy(a)
+    return t.clone() if torch.device(device).type == "cpu" else t.to(device)
 
 
 def to_host(t: torch.Tensor) -> np.ndarray:

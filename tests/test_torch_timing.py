@@ -141,7 +141,46 @@ def test_bgv_multiply_holds_its_measured_mod_downs(fresh):
     hosts = [s for s in spans if s["name"] == "Ctxt.mod_down_to.to_host"]
     assert hosts and all(s["parent"] in measures for s in hosts)
     assert set(_names(spans)) == {"Ctxt.multiply", "Ctxt.mod_down_to.measure",
-                                  "Ctxt.mod_down_to.to_host"}
+                                  "Ctxt.mod_down_to.to_host",
+                                  "Ctxt.relinearize"}
+
+
+@pytest.fixture(scope="module")
+def bgv31():
+    """m=31 keys with the relinearization matrix and that of X -> X^3, and
+    two fresh encryptions of 1."""
+    ctx = Context(m=31, p=2, r=1, bits=120, c=3, device="cpu")
+    sk = SecKey(ctx, seed=3)
+    pk = PubKey(sk)
+    sk.gen_ks_matrix(SKHandle(2, 1, 0))
+    sk.gen_ks_matrix(SKHandle(1, 3, 0))
+    pt = np.zeros(ctx.phi_m, dtype=np.int64)
+    pt[0] = 1
+    return pk, [pk.encrypt_bgv(pt, np.random.default_rng(s)) for s in (5, 6)]
+
+
+def test_key_switches_are_spans_under_their_operation(fresh, bgv31):
+    pk, (a, b) = bgv31
+    timing.tracing = True
+    a.multiply(b, pk)
+    spans = timing.spans()
+    assert spans[0]["name"] == "Ctxt.multiply"
+    (ks,) = [s for s in spans if s["name"] == "Ctxt.relinearize"]
+    assert ks["parent"] == ks["request"] == 0
+    # smart_automorph: the call that finds the input canonical, then the
+    # key switch after X -> X^3
+    timing.reset_spans()
+    a.copy().smart_automorph(3, pk)
+    spans = timing.spans()
+    assert spans[0]["name"] == "Ctxt.smart_automorph"
+    assert [(s["name"], s["parent"]) for s in spans
+            if s["parent"] == 0] == [("Ctxt.relinearize", 0)] * 2
+    # off: the same calls record nothing
+    timing.tracing = False
+    timing.reset_spans()
+    a.multiply(b, pk)
+    a.copy().smart_automorph(3, pk)
+    assert timing.spans() == []
 
 
 def test_ckks_multiply_measures_no_noise(fresh):
