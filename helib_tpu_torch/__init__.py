@@ -8,9 +8,11 @@ of helib_tpu's Pallas set -- the Bluestein convolutions of odd-m transforms
 (row-major ops/csrc/conv.cu, aux-major ops/csrc/conv_aux.cu), the fused
 negacyclic NTT of power-of-2 m (ops/csrc/ntt.cu) and their v2-schedule
 twins (ops/csrc/ntt2.cu), all instantiations of ops/csrc/ntt_rows.cuh --
-plus the two cost probes (ops/csrc/probes.cu) and one kernel of its own,
+plus the two cost probes (ops/csrc/probes.cu) and two kernels of its own:
 the canonical-embedding max of the measured mod-switch noise
-(ops/csrc/embed_max.cu), which helib_tpu computes on the host.  Transforms
+(ops/csrc/embed_max.cu), which helib_tpu computes on the host, and the RNS
+basis extension of the key switch's digits and the scaled mod-down
+(ops/csrc/basis_ext.cu), which helib_tpu leaves to XLA.  Transforms
 above 2^16 run the staged torch transforms, as helib_tpu's do above its
 kernels.  Module names mirror helib_tpu's so each counterpart is easy to
 find; nothing here imports JAX or helib_tpu.

@@ -10,14 +10,15 @@ power-of-2 m.  Leading dims are a batch: every op broadcasts over them.
   * `rt_add_special_and_scale`: scale by P with zero special rows;
   * `rt_break_into_digits`: mixed-radix digits with balanced basis extension.
 
-The digit decomposition and the scaled mod-down are helib_tpu's jit sites:
-one compiled program a configuration (Context.jit_call; on the card a
-CUDA-graph replay a call).
+Both lift a block of coefficient rows onto other primes through
+ops.basis_ext (one kernel launch on the card).  The digit decomposition and
+the scaled mod-down are helib_tpu's jit sites: one compiled program a
+configuration (Context.jit_call; on the card a CUDA-graph replay a call).
 
-The float64 lifts sum their terms left to right in an explicit loop.  XLA:CPU
-contracts the same sum into fused multiply-adds, so the float sums can differ
-in the last bit; the integer lifts taken from them agree except when a sum
-lies within ~1e-16 of a rounding boundary.
+The float64 lifts sum their terms left to right, each product and sum
+rounded on its own.  XLA:CPU contracts the same sum into fused multiply-adds,
+so the float sums can differ in the last bit; the integer lifts taken from
+them agree except when a sum lies within ~1e-16 of a rounding boundary.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import torch
 
 from .context import Context, log2_sum
 from .ops import modops
+from .ops.basis_ext import basis_ext, basis_ext_tables
 from .ops.modops import (add_mod, sub_mod, neg_mod, mul_mod, mul_mod_shoup,
                          to_device, to_host)
 from .exceptions import assert_true
@@ -247,70 +249,31 @@ def small_coeffs_to_rt(ctx: Context, coeffs: np.ndarray, k: int,
 # RNS basis extension + scaled mod-down
 # ---------------------------------------------------------------------------
 
-def _lift_consts(ctx: Context, d: np.ndarray, t: np.ndarray) -> dict:
-    """Balanced-CRT-lift constants of the block of primes d onto primes t:
-    c_i = (D/d_i)^-1 mod d_i, M[i, j] = D/d_i mod t_j, D mod t_j, 1/d_i."""
-    D = 1
-    for x in d:
-        D *= int(x)
-    c_i = np.array([pow((D // int(di)) % int(di), -1, int(di)) for di in d],
-                   dtype=np.uint32)
-    M = np.array([[(D // int(di)) % int(tj) for tj in t] for di in d],
-                 dtype=np.uint32)                         # [kd, T]
-    D_mod_t = np.array([D % int(tj) for tj in t], dtype=np.uint32)
-    dev = lambda a: to_device(a, ctx.device)
-    return {"D": D,
-            "d_q": dev(d.astype(np.uint32)[:, None]),
-            "c": dev(c_i[:, None]), "c_sh": dev(modops.shoup(c_i, d)[:, None]),
-            "M": dev(M[:, :, None]),                      # [kd, T, 1]
-            "M_sh": dev(modops.shoup(M, t[None, :])[:, :, None]),
-            "D_mod_t": dev(D_mod_t[:, None]),
-            "D_mod_t_sh": dev(modops.shoup(D_mod_t, t)[:, None]),
-            "inv_d": [float(v) for v in 1.0 / d.astype(np.float64)]}
-
-
-def _balanced_lift(cst: dict, x_coeff, t_q):
-    """Balanced CRT lift of the coefficient block x_coeff [..., kd, N] onto
-    the target primes: returns (y, z, alpha, delta) with y_i = x_i c_i mod
-    d_i, z = sum_i y_i / d_i (float64, left to right), alpha = round(z) (as
-    float64) and delta = sum_i y_i (D/d_i) - alpha D mod each target
-    [..., T, N]."""
-    y = mul_mod_shoup(x_coeff, cst["c"], cst["c_sh"], cst["d_q"])
-    yf = y.to(torch.float64)
-    inv_d = cst["inv_d"]
-    z = yf[..., 0, :] * inv_d[0]
-    for i in range(1, len(inv_d)):
-        z = z + yf[..., i, :] * inv_d[i]
-    alpha = torch.floor(z)
-    alpha = alpha + ((z - alpha) >= 0.5)
-    acc = None
-    for i in range(len(inv_d)):
-        term = mul_mod_shoup(y[..., i:i + 1, :], cst["M"][i],
-                             cst["M_sh"][i], t_q)
-        acc = term if acc is None else add_mod(acc, term, t_q)
-    corr = mul_mod_shoup(alpha.to(torch.int32).unsqueeze(-2), cst["D_mod_t"],
-                         cst["D_mod_t_sh"], t_q)
-    return y, z, alpha, sub_mod(acc, corr, t_q)
-
-
 def _drop_consts(ctx: Context, drop_rows: tuple, target_rows: tuple,
                  ptxt_space: int) -> dict:
-    """Constants for the scaled mod-down dropping `drop_rows`."""
+    """Constants for the scaled mod-down dropping `drop_rows`: the lift of
+    the dropped block onto the target rows (`lift`), and with a plaintext
+    space p^r > 1 onto p^r too, as one more target row: the p^r correction
+    reads sum_i y_i (D/d_i) - alpha D mod p^r, the same sum under one more
+    modulus."""
     d = ctx.all_q[np.array(drop_rows)].astype(np.uint64)
     t = ctx.all_q[np.array(target_rows)].astype(np.uint64)
-    out = _lift_consts(ctx, d, t)
-    D = out["D"]
+    pr = ptxt_space
+    if pr > 1:
+        assert_true(pr < (1 << 30), "ptxt space too large for RNS mod-down")
+    lift = basis_ext_tables(d, np.append(t, np.uint64(pr)) if pr > 1 else t,
+                            ctx.device)
+    T = len(t)
+    out = {"lift": lift, "D_mod_t": lift["D_mod_t"][:T],
+           "D_mod_t_sh": lift["D_mod_t_sh"][:T]}
+    D = lift["D"]
     Dinv_mod_t = np.array([pow(D % int(tj), -1, int(tj)) for tj in t],
                           dtype=np.uint32)
     out["Dinv_mod_t"] = to_device(Dinv_mod_t[:, None], ctx.device)
     out["Dinv_mod_t_sh"] = to_device(modops.shoup(Dinv_mod_t, t)[:, None],
                                      ctx.device)
-    if ptxt_space > 1:
-        pr = ptxt_space
-        assert_true(pr < (1 << 30), "ptxt space too large for RNS mod-down")
-        out["M_pr"] = [(D // int(di)) % pr for di in d]
-        out["D_pr"] = D % pr
-        out["Dinv_pr"] = pow(D % pr, -1, pr) if pr > 1 else 0
+    if pr > 1:
+        out["Dinv_pr"] = pow(D % pr, -1, pr)
         prD = np.array([(pr * D) % int(tj) for tj in t], dtype=np.uint32)
         out["pr_D_mod_t"] = to_device(prD[:, None], ctx.device)
     return out
@@ -361,16 +324,14 @@ def _rt_scale_down(ctx: Context, data, k: int, special: bool,
 
     x_coeff = ctx.inv_ntt(data.index_select(-2, _rows(ctx, drop_pos)),
                           drop_rows)                        # [..., kd, N]
-    y, z, alpha, delta = _balanced_lift(cst, x_coeff, t_q)
-    frac_bal = (z - alpha) if want_frac else None   # delta0/D in [-1/2,1/2)
+    # frac_bal: delta0/D in [-1/2, 1/2)
+    delta, frac_bal = basis_ext(x_coeff, cst["lift"], want_frac)
 
     if ptxt_space > 1:
-        # v' mod p^r (exact int64 ops on the small modulus)
-        pr = ptxt_space
-        accp = torch.zeros_like(z, dtype=torch.int64)
-        for i, m_pr in enumerate(cst["M_pr"]):
-            accp = accp + (y[..., i, :].to(torch.int64) * m_pr) % pr
-        accp = (accp + pr - (alpha.to(torch.int64) * cst["D_pr"]) % pr) % pr
+        # v' mod p^r: the lift's last row, under the modulus p^r
+        pr, T = ptxt_space, len(new_rows)
+        accp = delta[..., T, :].to(torch.int64)
+        delta = delta[..., :T, :]
         # eps = -v' * D^{-1} mod p^r, lifted to the balanced range
         eps = ((pr - accp) * cst["Dinv_pr"]) % pr                # [..., N]
         eps_hi = eps > pr // 2
@@ -413,7 +374,7 @@ def _digit_consts(ctx: Context, k: int) -> list:
     consts = []
     for j, (s, e) in enumerate(ctx.digit_ranges(k)):
         d = ctx.all_q[s:e].astype(np.uint64)
-        entry = _lift_consts(ctx, d, t)
+        entry = basis_ext_tables(d, t, ctx.device)
         fs, fe = ctx.digits[j]
         Df = 1
         for x in ctx.qs[fs:fe]:
@@ -441,7 +402,8 @@ def _digit_consts_rows(ctx: Context, k: int, own: tuple) -> list:
     for cst in ctx.cached(("digits", k), lambda: _digit_consts(ctx, k)):
         sub = dict(cst)
         for key, idx, dim in (("M", held, 1), ("M_sh", held, 1),
-                              ("D_mod_t", held, 0), ("D_mod_t_sh", held, 0),
+                              ("t_q", held, 0), ("D_mod_t", held, 0),
+                              ("D_mod_t_sh", held, 0),
                               ("Dfinv", live, 0), ("Dfinv_sh", live, 0)):
             sub[key] = cst[key].index_select(dim, idx)
         out.append(sub)
@@ -508,7 +470,6 @@ def _digits(ctx: Context, data, k: int, consts: list, own, gather) -> list:
     else:
         lo, n_own = own[0], len(own)
     held = ctx.rows_of(k, True, own)
-    t_q, _ = ctx.dev_q(k, True, own)
     live_q = ctx.dev_q(k, False, own)[0]
     cur = ctx.inv_ntt(data, ctx.rows_of(k, False, own))  # [..., n_own, N]
     cur_eval = data                                       # same value, eval
@@ -520,7 +481,7 @@ def _digits(ctx: Context, data, k: int, consts: list, own, gather) -> list:
         block = cur[..., a:b, :]
         if own is not None:
             block = gather(s, e, block)
-        digit_coeff = _balanced_lift(cst, block, t_q)[3]
+        digit_coeff = basis_ext(block, cst)[0]
         ext_rows = held[:a] + held[b:]
         ext_coeff = torch.cat([digit_coeff[..., :a, :],
                                digit_coeff[..., b:, :]], dim=-2)

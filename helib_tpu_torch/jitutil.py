@@ -83,7 +83,8 @@ def launch_counters() -> list:
     launch: each kernel wrapper's `.launches`, ops.ntt.staged_transforms and
     parallel.sharded_ntt.sharded_transforms."""
     if not _counters:
-        from .ops import conv, embed_max, ntt, ntt2, ntt_fused, probes
+        from .ops import (basis_ext, conv, embed_max, ntt, ntt2, ntt_fused,
+                          probes)
         from .parallel import sharded_ntt
         _counters.extend([
             (conv.conv_cuda, "launches"), (conv.conv_aux_cuda, "launches"),
@@ -91,6 +92,7 @@ def launch_counters() -> list:
             (ntt2.conv2_cuda, "launches"), (probes.p1_cuda, "launches"),
             (probes.p2_cuda, "launches"),
             (embed_max.embed_max_cuda, "launches"),
+            (basis_ext.basis_ext_cuda, "launches"),
             (ntt, "staged_transforms"), (sharded_ntt, "sharded_transforms")])
     return _counters
 
@@ -116,13 +118,13 @@ def count_delta(before, after) -> tuple:
 
 
 def dispatch_key() -> tuple:
-    """The kernel entry points a transform dispatches to and the v2
-    switch: a graph captured with one set replays only under the same set,
-    so a plain version swapped in for a check, or HELIB_NTT_V2, captures a
-    graph of its own."""
-    from .ops import conv, ntt, ntt2, ntt_fused
+    """The kernel entry points a transform and the basis extension
+    dispatch to, and the v2 switch: a graph captured with one set replays
+    only under the same set, so a plain version swapped in for a check, or
+    HELIB_NTT_V2, captures a graph of its own."""
+    from .ops import basis_ext, conv, ntt, ntt2, ntt_fused
     return (conv.conv, conv.conv_aux, ntt_fused.ntt, ntt.staged_conv,
-            ntt.staged_pow2, ntt2.ntt_v2())
+            ntt.staged_pow2, ntt2.ntt_v2(), basis_ext.basis_ext_cuda)
 
 
 # ---------------------------------------------------------------------------

@@ -95,6 +95,16 @@ inline uint32_t __umulhi(uint32_t a, uint32_t b) {
   return static_cast<uint32_t>((static_cast<uint64_t>(a) * b) >> 32);
 }
 template <class T> inline T __ldg(const T* p) { return *p; }
+inline unsigned long long __umul64hi(unsigned long long a,
+                                     unsigned long long b) {
+  return static_cast<unsigned long long>(
+      (static_cast<unsigned __int128>(a) * b) >> 64);
+}
+// the host compiles without -mfma and with ISO C++'s -ffp-contract=off, so
+// each product and sum is rounded on its own, as these intrinsics are
+inline double __dmul_rn(double a, double b) { return a * b; }
+inline double __dadd_rn(double a, double b) { return a + b; }
+inline double __dsub_rn(double a, double b) { return a - b; }
 inline long long __double_as_longlong(double d) {
   long long v;
   std::memcpy(&v, &d, sizeof v);

@@ -1,7 +1,7 @@
 """The port's CUDA kernels (K1 conv, K2 ntt, K3 conv_aux, K4 ntt2, K5
-conv2, the probes P1 and P2, embed_max) and its BGV and CKKS paths (CKKS
-at m=1024 and m=131072), the BGV measured mod-switch noise at m=31 and
-m=8009, the BGV slot layer and the thin bootstrap at m=1271 on the
+conv2, the probes P1 and P2, embed_max, basis_ext) and its BGV and CKKS
+paths (CKKS at m=1024 and m=131072), the BGV measured mod-switch noise at
+m=31 and m=8009, the BGV slot layer and the thin bootstrap at m=1271 on the
 card, against the plain torch versions and the port on the CPU; the sizes
 above the kernels' 2^16 (BGV m=35113, CKKS m=262144) on the staged
 transforms, and the command-line utilities on the card.  The twins of
@@ -123,6 +123,33 @@ def test_embed_max_kernel_matches_plain_on_gpu(gpu, m):
     want = em.embed_max_plain(x.to(gpu), tab)
     assert got[-1].item() == 0.0
     assert torch.allclose(got, want, rtol=1e-12, atol=0.0)
+
+
+# the main path's lifts (batch, source rows, target rows, p^r, N): BGV
+# m=32003's digit (65 onto all 259 rows) and special mod-down (65 onto 194
+# and the p^r row), CKKS m=65536's batched digit (5 onto 20)
+LIFTS = [(1, 65, 259, 0, 32003), (1, 65, 194, 2, 32003),
+         (16, 5, 20, 0, 32768)]
+
+
+@pytest.mark.parametrize("batch,kd,T,pr,n", LIFTS)
+def test_basis_ext_kernel_matches_plain_on_gpu(gpu, batch, kd, T, pr, n):
+    """The RNS basis extension at the main path's shapes: the residues and
+    the float64 remainder bit for bit those of the plain version on the
+    card; one counted launch a call."""
+    from helib_tpu_torch.ops import basis_ext as be
+    primes = gen_primes(2, kd + T)
+    d, t = primes[:kd], primes[kd:] + ([pr] if pr > 1 else [])
+    rng = np.random.default_rng(kd + T)
+    x = to_device(rng.integers(0, np.array(d, dtype=np.int64)[:, None],
+                               (batch, kd, n)).astype(np.uint32), gpu)
+    tab = be.basis_ext_tables(d, t, gpu)
+    before = be.basis_ext_cuda.launches
+    got, frac = be.basis_ext(x, tab, want_frac=True)
+    torch.cuda.synchronize()
+    assert be.basis_ext_cuda.launches == before + 1
+    want, want_frac = be.basis_ext_plain(x, tab, want_frac=True)
+    assert torch.equal(got, want) and torch.equal(frac, want_frac)
 
 
 @pytest.mark.parametrize("params", [dict(m=31, p=2, r=1, bits=300, c=3),
@@ -877,7 +904,9 @@ def test_site_nested_in_a_capture_runs_its_body(gpu, size):
     g = torch.cuda.CUDAGraph()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
+    # cyclic garbage collection held off, as jitutil's own captures do: a
+    # graph collected from an earlier test would end this capture
+    with torch.cuda.stream(side), jitutil._no_gc():
         with torch.cuda.graph(g, capture_error_mode="thread_local"):
             held = call(static)
     torch.cuda.current_stream().wait_stream(side)

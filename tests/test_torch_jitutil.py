@@ -112,8 +112,8 @@ def test_counter_replay_adds_the_capture_deltas():
 
 
 def test_launch_counters_are_the_ports_counts():
-    from helib_tpu_torch.ops import (conv, embed_max, ntt, ntt2, ntt_fused,
-                                     probes)
+    from helib_tpu_torch.ops import (basis_ext, conv, embed_max, ntt, ntt2,
+                                     ntt_fused, probes)
     from helib_tpu_torch.parallel import sharded_ntt
     held = {(id(h), a) for h, a in jitutil.launch_counters()}
     for h, a in [(conv.conv_cuda, "launches"), (conv.conv_aux_cuda,
@@ -121,20 +121,24 @@ def test_launch_counters_are_the_ports_counts():
                  (ntt2.ntt2_cuda, "launches"), (ntt2.conv2_cuda, "launches"),
                  (probes.p1_cuda, "launches"), (probes.p2_cuda, "launches"),
                  (embed_max.embed_max_cuda, "launches"),
+                 (basis_ext.basis_ext_cuda, "launches"),
                  (ntt, "staged_transforms"),
                  (sharded_ntt, "sharded_transforms")]:
         assert (id(h), a) in held
-    assert len(held) == 10
+    assert len(held) == 11
 
 
 def test_dispatch_key_follows_a_swapped_kernel_and_v2(monkeypatch):
-    from helib_tpu_torch.ops import conv
+    from helib_tpu_torch.ops import basis_ext, conv
     k0 = jitutil.dispatch_key()
     monkeypatch.setattr(conv, "conv_aux", conv.conv_aux_plain)
     k1 = jitutil.dispatch_key()
     monkeypatch.setenv("HELIB_NTT_V2", "1")
     k2 = jitutil.dispatch_key()
-    assert len({k0, k1, k2}) == 3
+    monkeypatch.setattr(basis_ext, "basis_ext_cuda",
+                        basis_ext.basis_ext_plain)
+    k3 = jitutil.dispatch_key()
+    assert len({k0, k1, k2, k3}) == 4
 
 
 def test_outputs_flatten_and_rebuild():
