@@ -32,11 +32,10 @@ Every graph shares one memory pool a device (torch.cuda.graph_pool_handle,
 held for the process): a graph's static inputs and outputs are held for its
 lifetime, so a later capture reuses only the intermediates of earlier ones,
 which is safe while the graphs replay one after another on one stream, as
-every caller here does.  The launch counts a kernel wrapper keeps in
-Python (`launch_counters`) are incremented by Python code that a replay
-skips, so each run records their change during its capture and adds it
-again on every replay.  A capture or replay error raises; nothing falls
-back to eager dispatch.
+every caller here does.  The port's launch counts (ops._build.launch_counts)
+are kept by Python code that a replay skips, so each run records their
+change during its capture and adds it again on every replay.  A capture or
+replay error raises; nothing falls back to eager dispatch.
 """
 
 from __future__ import annotations
@@ -46,6 +45,7 @@ import gc
 
 import torch
 
+from .ops import _build
 from .timing import timer
 
 _disabled = 0        # disable_jit() depth
@@ -69,52 +69,6 @@ def disable_jit():
 
 def jit_enabled() -> bool:
     return _disabled == 0
-
-
-# ---------------------------------------------------------------------------
-# the launch counts a replay has to keep true (pure Python bookkeeping)
-# ---------------------------------------------------------------------------
-
-_counters: list = []
-
-
-def launch_counters() -> list:
-    """(holder, attribute) of every count the port keeps in Python beside a
-    launch: each kernel wrapper's `.launches`, ops.ntt.staged_transforms and
-    parallel.sharded_ntt.sharded_transforms."""
-    if not _counters:
-        from .ops import (basis_ext, conv, embed_max, ntt, ntt2, ntt_fused,
-                          probes)
-        from .parallel import sharded_ntt
-        _counters.extend([
-            (conv.conv_cuda, "launches"), (conv.conv_aux_cuda, "launches"),
-            (ntt_fused.ntt_cuda, "launches"), (ntt2.ntt2_cuda, "launches"),
-            (ntt2.conv2_cuda, "launches"), (probes.p1_cuda, "launches"),
-            (probes.p2_cuda, "launches"),
-            (embed_max.embed_max_cuda, "launches"),
-            (basis_ext.basis_ext_cuda, "launches"),
-            (ntt, "staged_transforms"), (sharded_ntt, "sharded_transforms")])
-    return _counters
-
-
-def read_counts(counters) -> tuple:
-    return tuple(getattr(h, a) for h, a in counters)
-
-
-def set_counts(counters, values) -> None:
-    for (h, a), v in zip(counters, values):
-        setattr(h, a, v)
-
-
-def add_counts(counters, delta) -> None:
-    """Adds a capture's change of each count (what one replay launches)."""
-    for (h, a), d in zip(counters, delta):
-        if d:
-            setattr(h, a, getattr(h, a) + d)
-
-
-def count_delta(before, after) -> tuple:
-    return tuple(b - a for a, b in zip(before, after))
 
 
 def dispatch_key() -> tuple:
@@ -220,7 +174,6 @@ class _Graph:
 
     def __init__(self, fn, args, device):
         global captures
-        counters = launch_counters()
         handle = pool(device)
         self.static_in = [a.clone() for a in args]
         side, cur = _side_stream(device), torch.cuda.current_stream(device)
@@ -231,10 +184,11 @@ class _Graph:
             # gives the first call's outputs (real launches, so counted)
             with timer("jitutil.warmup"):
                 self.first = fn(*args)
-            before = read_counts(counters)
             reserved = torch.cuda.memory_reserved(device)
+            # the capture launched nothing; a replay launches what it counted
             try:
-                with timer("jitutil.capture"), _no_gc():
+                with timer("jitutil.capture"), _no_gc(), \
+                        _build.counted_apart() as self.delta:
                     self.graph.capture_begin(
                         pool=handle, capture_error_mode="thread_local")
                     try:
@@ -247,10 +201,6 @@ class _Graph:
             except BaseException:
                 _retire(device)
                 raise
-            finally:
-                # the capture launched nothing; a replay launches this
-                self.delta = count_delta(before, read_counts(counters))
-                set_counts(counters, before)
         cur.wait_stream(side)
         self.leaves: list = []
         self.skel = _flatten(out, self.leaves)
@@ -264,7 +214,7 @@ class _Graph:
                 s.copy_(a)
             self.graph.replay()
             replays += 1
-            add_counts(launch_counters(), self.delta)
+            _build.launch_counts.update(self.delta)
             return _rebuild(self.skel, (t.clone() for t in self.leaves))
 
 

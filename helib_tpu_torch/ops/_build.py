@@ -7,10 +7,19 @@ its source, the shared headers (csrc/*.cuh) and the flags, so a changed
 source or header rebuilds and an unchanged one is reused.  Nothing is
 compiled at import time: the first launch builds.  `check_tensors` and
 `launch` are the ctypes side that every kernel wrapper shares.
+
+`launch_counts` is the port's one count of its launches, by key: `launch`
+adds one under the C entry it calls (`<name>` for helib_<name>_launch,
+`<name>_<mode>` for helib_<name>_launch_<mode>), and the transforms that run
+no kernel (the staged ones above 2^16, the sharded four-step ones) add
+theirs through `count`.  A CUDA-graph replay skips the Python that counts,
+so jitutil records a capture's change with `counted_apart` and adds it again
+on every replay.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -18,6 +27,7 @@ import os
 import shutil
 import subprocess
 import threading
+from collections import Counter
 
 import torch
 
@@ -30,6 +40,26 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _libs: dict = {}
 ptxas_log: dict = {}     # source name -> nvcc's resource report (this process)
+launch_counts: Counter = Counter()   # key -> launches in this process
+
+
+def count(key: str) -> None:
+    """Adds one launch (or transform) under `key`."""
+    launch_counts[key] += 1
+
+
+@contextlib.contextmanager
+def counted_apart():
+    """Yields a Counter that holds, once the block ends, what the block added
+    to `launch_counts`; `launch_counts` itself is left as it was before."""
+    before = launch_counts.copy()
+    change: Counter = Counter()
+    try:
+        yield change
+    finally:
+        change.update(launch_counts - before)
+        launch_counts.clear()
+        launch_counts.update(before)
 
 
 def _nvcc() -> str:
@@ -117,8 +147,8 @@ def check_tensors(kernel: str, device, specs) -> None:
 def launch(name: str, device, *args, entry: str = "launch") -> None:
     """Calls helib_<name>_<entry> of ops/csrc/<name>.cu with `args` and the
     current stream of `device`: a tensor is passed as its device pointer,
-    anything else as the ctypes scalar it is.  Raises RuntimeError on a CUDA
-    error."""
+    anything else as the ctypes scalar it is, and counts the launch (see the
+    module docstring).  Raises RuntimeError on a CUDA error."""
     lib = load(name)
     cargs = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
              else a for a in args]
@@ -129,3 +159,5 @@ def launch(name: str, device, *args, entry: str = "launch") -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            + lib.helib_cuda_error_string(err).decode())
+    count(name if entry == "launch" else
+          name + "_" + entry.removeprefix("launch_"))

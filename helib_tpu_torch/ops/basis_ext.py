@@ -129,13 +129,9 @@ def basis_ext_cuda(x, tab, want_frac: bool = False):
            ctypes.c_int(kd), ctypes.c_int(T), ctypes.c_int(n), tab["d_q"],
            tab["c"], tab["c_sh"], inv_d, tab["t_q"], tab["M"],
            tab["D_mod_t"])
-    basis_ext_cuda.launches += 1
     lead = x.shape[:-2]
     return (out.reshape(*lead, T, n),
             None if frac is None else frac.reshape(*lead, n))
-
-
-basis_ext_cuda.launches = 0
 
 
 def basis_ext(x, tab, want_frac: bool = False):

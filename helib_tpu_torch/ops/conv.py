@@ -33,8 +33,7 @@ from __future__ import annotations
 from .modops import mul_mod_shoup
 from .ntt import ntt_pow2_fwd, ntt_pow2_inv
 from .ntt2 import ntt_v2, conv2_cuda, conv2_plain
-from .rows import (CTA_MAX_LOG_N, MAX_LOG_N as AUX_MAX_LOG_N, launch_rows,
-                   max_clusters)
+from .rows import CTA_MAX_LOG_N, MAX_LOG_N as AUX_MAX_LOG_N, launch_rows
 
 
 def conv_plain(x, aux, khat, khat_sh):
@@ -50,12 +49,7 @@ def conv_cuda(x, aux, khat, khat_sh):
     if x.dim() < 3 or x.shape[-3] != 3:
         raise ValueError(f"conv kernel: x must be [..., 3, P, n], got "
                          f"{tuple(x.shape)}")
-    out = launch_rows("conv", x, aux, khat, khat_sh, CTA_MAX_LOG_N)
-    conv_cuda.launches += 1
-    return out
-
-
-conv_cuda.launches = 0
+    return launch_rows("conv", x, aux, khat, khat_sh, CTA_MAX_LOG_N)
 
 
 def conv(x, aux, khat, khat_sh):
@@ -81,12 +75,7 @@ def conv_aux_cuda(x, aux, khat, khat_sh):
     if x.dim() < 3 or x.shape[0] != 3:
         raise ValueError(f"conv_aux kernel: x must be [3, ..., P, n], got "
                          f"{tuple(x.shape)}")
-    out = launch_rows("conv_aux", x, aux, khat, khat_sh, AUX_MAX_LOG_N)
-    conv_aux_cuda.launches += 1
-    return out
-
-
-conv_aux_cuda.launches = 0
+    return launch_rows("conv_aux", x, aux, khat, khat_sh, AUX_MAX_LOG_N)
 
 
 def conv_aux(x, aux, khat, khat_sh):
@@ -95,9 +84,3 @@ def conv_aux(x, aux, khat, khat_sh):
     if x.is_cuda:
         return conv_aux_cuda(x, aux, khat, khat_sh)
     return conv_aux_plain(x, aux, khat, khat_sh)
-
-
-def conv_aux_max_clusters(device) -> int:
-    """How many clusters of K3's n = 65536 kernel the card holds at once
-    (cudaOccupancyMaxActiveClusters); 0 means it cannot launch."""
-    return max_clusters("conv_aux", device)

@@ -18,9 +18,9 @@
 // composite -- K5's design (K5 is the same instantiation at k <= 3,
 // ntt2.cu).  Occupancy: 512 threads, at least 2 CTAs an SM (64 registers),
 // the default carveout (kRowThreads, kRowMinBlocks; PERF.md has the
-// candidates tried).  The bound is unchanged (chip_smoke.py conv_bound_ms):
-// at n = 16384 the 3 (n log2 n + 2n) 32-bit multiplies a row, not its 16n
-// bytes.
+// candidates tried).  The bound is unchanged (hebench/counts.py
+// conv_bound_ms): at n = 16384 the 3 (n log2 n + 2n) 32-bit multiplies a
+// row, not its 16n bytes.
 
 #include "ntt_rows.cuh"
 

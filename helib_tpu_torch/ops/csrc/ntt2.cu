@@ -5,7 +5,7 @@
 // (kernel body _ntt2_kernel, wrapper apply_ntt2) and computes what K2
 // (ntt.cu) computes; K5 replaces pallas_ntt2.py::pallas_conv2 (kernel body
 // _conv2_kernel, wrapper apply_conv2) and computes what K1 (conv.cu)
-// computes.  The work and the bounds are K2's and K1's (chip_smoke.py
+// computes.  The work and the bounds are K2's and K1's (hebench/counts.py
 // ntt_bound_ms, conv_bound_ms).
 //
 // There is no device body here: both are ntt_rows.cuh's template, with

@@ -79,7 +79,7 @@
 //     4 CTAs an SM) to 40 % (2-CTA clusters of 64 KB halves, 256 threads,
 //     3 CTAs an SM, 198 rows resident) longer; one CTA of 512 threads 11 %.
 //
-// Bounds (chip_smoke.py conv_bound_ms, ntt_bound_ms): the convolution moves
+// Bounds (hebench/counts.py conv_bound_ms, ntt_bound_ms): the convolution moves
 // x in and out (8n bytes a row) and its khat and khat_sh rows (8n bytes)
 // against 3 (n log2 n + 2n) 32-bit multiplies -- the multiplies bound K1's
 // n = 16384 rows, the bytes K3's n = 65536 rows; the NTT moves 8n bytes a
@@ -450,29 +450,6 @@ struct Rows {
     if (err != cudaSuccess) return static_cast<int>(err);
     return static_cast<int>(cudaGetLastError());
   }
-
-  // How many clusters of this configuration at 2^log_n words the card holds
-  // at once (cudaOccupancyMaxActiveClusters; with one CTA a row, CTAs).
-  static int max_clusters(int log_n, int* clusters) {
-    cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg = config(kCluster, log_n, nullptr, &attr);
-    cudaError_t err = prepare(cfg);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if constexpr (kCluster > 1) {
-      return static_cast<int>(
-          cudaOccupancyMaxActiveClusters(clusters, kernel(), &cfg));
-    } else {
-      int per_sm = 0, dev = 0, sms = 0;
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, kernel(), kThreads, cfg.dynamicSmemBytes);
-      if (err == cudaSuccess) err = cudaGetDevice(&dev);
-      if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                     dev);
-      *clusters = per_sm * sms;
-      return static_cast<int>(err);
-    }
-  }
 };
 
 // The power-of-2 NTT of K2 (K = 3) and K4 (K = its composite cap) in mode
@@ -503,16 +480,6 @@ struct NttRows {
                          nullptr, nullptr, q, s);
     return Small::launch(x, out, rows, log_n, P, tw, tw_sh, itw, itw_sh,
                          nullptr, nullptr, q, s);
-  }
-
-  // The clusters (CTAs, with one CTA a row) of the configuration of
-  // n = 2^log_n the card holds at once.
-  static int max_clusters(int log_n, int* clusters) {
-    if (log_n < 3 || log_n > 16)
-      return static_cast<int>(cudaErrorInvalidValue);
-    if (log_n == 16) return N16::max_clusters(log_n, clusters);
-    if (log_n == 15) return N15::max_clusters(log_n, clusters);
-    return Small::max_clusters(log_n, clusters);
   }
 };
 

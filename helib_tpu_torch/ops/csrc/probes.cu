@@ -45,10 +45,11 @@
 // follows its current block (stage_w holds its 4 blocks' twiddles).  Values
 // are Harvey-lazy (composite.cuh), reduced once before the store.  The
 // grid covers the rows' orbits, kP1Threads a CTA, at least kP1MinBlocks
-// CTAs an SM.  Bounds (chip_smoke.py probe_bound_ms, 3 multiplies a Shoup
-// product): mul moves x, w, wsh and out (16 bytes a word); bfly and stage_w
-// read w, wsh for half the row (12 bytes a word); the staged variants move
-// 8 bytes a word against 42 multiplies, so the multiplies bound them.
+// CTAs an SM.  Bounds (tools/kernel_times.py probe_bound_ms, 3 multiplies
+// a Shoup product): mul moves x, w, wsh and out (16 bytes a word); bfly and
+// stage_w read w, wsh for half the row (12 bytes a word); the staged
+// variants move 8 bytes a word against 42 multiplies, so the multiplies
+// bound them.
 //
 // P2's design: K1's template itself.  The stage range runs as register
 // composites of phase_schedule(lo, hi, 3) (ops/ntt2.py) with the

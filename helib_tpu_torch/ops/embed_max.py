@@ -111,11 +111,7 @@ def embed_max_cuda(x, tab):
            ctypes.c_int(tab["n"]), ctypes.c_int(tab["m"]),
            ctypes.c_int(tab["log_l"]), tab["chirp"], tab["bhat"], tab["tw"],
            tab["mask"])
-    embed_max_cuda.launches += 1
     return out
-
-
-embed_max_cuda.launches = 0
 
 
 def embed_max(x, tab):

@@ -30,6 +30,7 @@ from ..nt.numbth import root_of_unity, inv_mod
 from ..nt.primegen import gen_aux_primes, AUX_POW2
 from .modops import (add_mod, sub_mod, mul_mod_shoup, shoup, reduce_u32,
                      to_device, to_host)
+from ._build import count
 from ..exceptions import assert_true
 
 
@@ -317,25 +318,22 @@ ROW_MAJOR_B = 16384   # the m=8009 class keeps K1's row-major layout
 # convolution of B > 2^16 (bluestein_apply) run the staged torch transforms
 # on the tensor's own device, as helib_tpu/ops/ntt.py:337-339, 360-362 and
 # 534-537 do.  This is a dispatch by size; the kernel wrappers still refuse
-# n > 2^16.  `staged_transforms` counts these transforms, as each kernel
-# wrapper's `.launches` counts its launches.
+# n > 2^16.  Each such transform counts under "staged" in
+# _build.launch_counts, beside the kernels' launches.
 STAGED_ABOVE = 1 << 16
-staged_transforms = 0
 
 
 def staged_pow2(x, t, inverse: bool):
     """K2's plain version (ntt_fused.ntt_plain) on x [..., P, n], counted."""
-    global staged_transforms
     from .ntt_fused import ntt_plain
-    staged_transforms += 1
+    count("staged")
     return ntt_plain(x, t, inverse)
 
 
 def staged_conv(x, aux, khat, khat_sh):
     """K1's plain version (conv.conv_plain) on x [..., 3, P, B], counted."""
-    global staged_transforms
     from .conv import conv_plain
-    staged_transforms += 1
+    count("staged")
     return conv_plain(x, aux, khat, khat_sh)
 
 

@@ -202,12 +202,7 @@ def ntt2_cuda(x, flat, q, inverse: bool, max_k: int = K_MAX):
     """K4 on x [..., P, n] (int32, contiguous, on the GPU, n = 8 .. 65536);
     flat: Pow2NTT.flat() of the P primes as device tensors, q [P, 1]."""
     _check_k("ntt2", max_k)
-    out = launch_ntt("ntt2", x, flat, q, inverse, (ctypes.c_int(max_k),))
-    ntt2_cuda.launches += 1
-    return out
-
-
-ntt2_cuda.launches = 0
+    return launch_ntt("ntt2", x, flat, q, inverse, (ctypes.c_int(max_k),))
 
 
 def conv2_cuda(x, aux, khat, khat_sh, max_k: int = K_MAX):
@@ -217,10 +212,5 @@ def conv2_cuda(x, aux, khat, khat_sh, max_k: int = K_MAX):
         raise ValueError(f"conv2 kernel: x must be [..., 3, P, n], got "
                          f"{tuple(x.shape)}")
     _check_k("conv2", max_k)
-    out = launch_rows("ntt2", x, aux, khat, khat_sh, CTA_MAX_LOG_N,
-                      entry="launch_conv", extra=(ctypes.c_int(max_k),))
-    conv2_cuda.launches += 1
-    return out
-
-
-conv2_cuda.launches = 0
+    return launch_rows("ntt2", x, aux, khat, khat_sh, CTA_MAX_LOG_N,
+                       entry="launch_conv", extra=(ctypes.c_int(max_k),))

@@ -26,11 +26,9 @@ or `ntt2_plain`.  Its table dict `t` holds both forms for one prime-row set
 
 from __future__ import annotations
 
-import ctypes
-
 from .ntt import ntt_pow2_fwd, ntt_pow2_inv
 from .ntt2 import ntt_v2, ntt2_cuda, ntt2_plain
-from .rows import launch_ntt, max_clusters
+from .rows import launch_ntt
 
 
 def ntt_plain(x, t, inverse: bool):
@@ -42,12 +40,7 @@ def ntt_cuda(x, flat, q, inverse: bool):
     """The CUDA kernel on x [..., P, n] (int32, contiguous, on the GPU,
     n = 8 .. 65536); flat: Pow2NTT.flat() of the P primes as device
     tensors, q [P, 1]."""
-    out = launch_ntt("ntt", x, flat, q, inverse)
-    ntt_cuda.launches += 1
-    return out
-
-
-ntt_cuda.launches = 0
+    return launch_ntt("ntt", x, flat, q, inverse)
 
 
 def ntt(x, t, inverse: bool):
@@ -61,9 +54,3 @@ def ntt(x, t, inverse: bool):
     if x.is_cuda:
         return ntt_cuda(x.contiguous(), t["flat"], t["q"], inverse)
     return ntt_plain(x, t, inverse)
-
-
-def ntt_max_clusters(device, log_n: int) -> int:
-    """How many clusters (CTAs, where a row is one CTA) of K2's kernel at
-    n = 2^log_n the card holds at once; 0 means it cannot launch."""
-    return max_clusters("ntt", device, ctypes.c_int(log_n))

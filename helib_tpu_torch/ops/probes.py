@@ -155,24 +155,14 @@ def p1_cuda(variant: str, x, w, wsh, q):
         raise ValueError(f"unknown P1 variant {variant!r}")
     log_m = p1_blocks(variant).bit_length() - 1
     lo = log_m + 3 if variant.startswith("stage") else 3
-    out = _launch(1, P1_VARIANTS.index(variant), lo, P1_MAX_LOG_N, x, w,
-                  wsh, q)
-    p1_cuda.launches += 1
-    return out
-
-
-p1_cuda.launches = 0
+    return _launch(1, P1_VARIANTS.index(variant), lo, P1_MAX_LOG_N, x, w,
+                   wsh, q)
 
 
 def p2_cuda(phase: str, x, tw, tw_sh, q):
     """P2 `phase` on the GPU: x [R, n], tables [T, n], q [T, 1]."""
     if phase not in P2_PHASES:
         raise ValueError(f"unknown P2 phase {phase!r}")
-    out = _launch(2, P2_PHASES.index(phase), FINE, P2_MAX_LOG_N, x, tw, tw_sh,
-                  q)
-    p2_cuda.launches += 1
-    return out
-
-
-p2_cuda.launches = 0
+    return _launch(2, P2_PHASES.index(phase), FINE, P2_MAX_LOG_N, x, tw,
+                   tw_sh, q)
 

@@ -13,7 +13,7 @@ import ctypes
 
 import torch
 
-from ._build import check_tensors, launch, load
+from ._build import check_tensors, launch
 
 MIN_LOG_N = 3        # B = 8 serves the smallest odd m (m = 3)
 CTA_MAX_LOG_N = 15   # 2^15 words = 128 KB of shared memory, within one CTA
@@ -84,17 +84,3 @@ def launch_ntt(name: str, x, flat, q, inverse: bool, extra: tuple = ()):
            ctypes.c_int(int(inverse)), *extra)
     return out
 
-
-def max_clusters(name: str, device, *args) -> int:
-    """helib_<name>_max_clusters(*args, &clusters) of csrc/<name>.cu: how
-    many clusters (CTAs, where a row is one CTA) of a configuration the
-    card holds at once; 0 means it cannot launch."""
-    lib = load(name)
-    clusters = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        err = getattr(lib, f"helib_{name}_max_clusters")(
-            *args, ctypes.byref(clusters))
-    if err != 0:
-        raise RuntimeError(f"{name} occupancy query failed: "
-                           + lib.helib_cuda_error_string(err).decode())
-    return clusters.value

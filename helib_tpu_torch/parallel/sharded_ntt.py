@@ -20,9 +20,9 @@ coarse stage contracts over it, so each direction gathers the blocks once
 (the transform's one exchange, 1x the tensor); the twist and the local
 nB-point stages are block-local.  Without a group all A blocks stay here,
 which is helib_tpu's meaning on one device.  These are torch ops, as
-helib_tpu's are jnp ones; `sharded_transforms` counts the four-step
-transforms run (each direction one), as ops.ntt.staged_transforms counts
-the staged ones.
+helib_tpu's are jnp ones; each four-step transform run (each direction
+one) counts under "sharded" in ops._build.launch_counts, as the staged ones
+count under "staged".
 """
 
 from __future__ import annotations
@@ -35,14 +35,13 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..context import resolve_device
+from ..ops._build import count
 from ..ops.ntt import Pow2NTT, power_table, _stage_exponents
 from ..ops.modops import (add_mod, sub_mod, mul_mod_shoup, shoup, reduce_u32,
                           to_device)
 from ..nt.numbth import inv_mod
 from ..exceptions import assert_true
 from .distributed import all_gather
-
-sharded_transforms = 0
 
 
 @dataclass
@@ -203,8 +202,7 @@ class ShardedNTT:
         """x [..., P, n_own]: this rank's columns of the coefficients ->
         its columns of the evaluations (Pow2NTT order).  The coarse stage
         gathers the blocks: the one exchange."""
-        global sharded_transforms
-        sharded_transforms += 1
+        count("sharded")
         t = self.dev
         X = self._blocks(self.gather(x, "ntt_coarse"))
         S = self._twist(self._coarse(X, t["W1"]), t["TW"])
@@ -214,8 +212,7 @@ class ShardedNTT:
     def inv(self, y):
         """Inverse of fwd, mirrored: local stages, twist, then the gathered
         coarse stage."""
-        global sharded_transforms
-        sharded_transforms += 1
+        count("sharded")
         t = self.dev
         S = self._local(self._blocks(y), t["litw"], inverse=True)
         S = self._twist(S, t["TWi"])

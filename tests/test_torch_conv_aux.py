@@ -19,6 +19,7 @@ from helib_tpu.ops import ntt as jntt
 from helib_tpu.ops.pallas_ntt import apply_conv_aux
 
 from helib_tpu_torch.ops import conv as convmod
+from helib_tpu_torch.ops._build import launch_counts
 from helib_tpu_torch.ops import ntt as tntt
 from helib_tpu_torch.ops import ntt2
 from helib_tpu_torch.ops.conv import conv_aux_cuda, conv_aux_plain
@@ -311,7 +312,7 @@ def test_conv_aux_wrapper_refuses_cpu_tensors_and_bad_shapes():
     aux = tntt.aux_tree(n, "cpu")["aux"]
     x = torch.zeros((3, 2, n), dtype=torch.int32)
     kh = torch.zeros((3, 2, n), dtype=torch.int32)
-    before = conv_aux_cuda.launches
+    before = launch_counts.copy()
     with pytest.raises(ValueError, match="CUDA tensor"):
         conv_aux_cuda(x, aux, kh, kh)
     with pytest.raises(ValueError, match=r"\[3, \.\.\., P, n\]"):
@@ -320,4 +321,4 @@ def test_conv_aux_wrapper_refuses_cpu_tensors_and_bad_shapes():
     with pytest.raises(ValueError, match="power of two"):
         conv_aux_cuda(torch.zeros((3, 1, 1 << 17), dtype=torch.int32), aux,
                       kh, kh)
-    assert conv_aux_cuda.launches == before
+    assert launch_counts == before

@@ -9,7 +9,7 @@ other configurations (threads a CTA, a 2-CTA cluster) through the test's own
 entries (HARNESS_CU).  The kernels' lazy arithmetic, schedule, row
 maps and cluster offsets are exercised as the card runs them; what only
 the card can show (the compiler's output, timing) is left to
-test_torch_cuda.py and chip_smoke.py."""
+test_torch_cuda.py and tools/kernel_times.py."""
 
 import ctypes
 import os
@@ -126,25 +126,6 @@ inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t e) {
   return e ? "invalid value" : "no error";
 }
-template <class F> cudaError_t cudaOccupancyMaxActiveClusters(
-    int* n, F, const cudaLaunchConfig_t*) {
-  *n = 1;
-  return cudaSuccess;
-}
-template <class F> cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-    int* n, F, int, size_t) {
-  *n = 1;
-  return cudaSuccess;
-}
-enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
-inline cudaError_t cudaGetDevice(int* d) {
-  *d = 0;
-  return cudaSuccess;
-}
-inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
-  *v = 1;
-  return cudaSuccess;
-}
 
 // Runs the grid cluster by cluster, every thread of a cluster at once.
 template <class... K, class... A>
@@ -234,6 +215,10 @@ int conv_aux_cluster2(CONV_ARGS) {
   return run<helib::AuxMajor, helib::kRowThreads, 2, 128>(CONV_NAMES,
                                                           stream);
 }
+int conv_aux_cluster2_wide(CONV_ARGS) {
+  return run<helib::AuxMajor, helib::kRowThreads, 2, 1024>(CONV_NAMES,
+                                                           stream);
+}
 }
 """
 
@@ -244,7 +229,7 @@ ENTRIES = {
     ("conv_aux", "shipped"): ("conv_aux", "helib_conv_aux_launch"),
     ("conv_aux", "threads64"): ("harness", "conv_aux_threads64"),
     ("conv_aux", "cluster2"): ("harness", "conv_aux_cluster2"),
-    ("conv_aux", "c2_entry"): ("conv_aux", "helib_conv_aux_launch_c2"),
+    ("conv_aux", "cluster2_wide"): ("harness", "conv_aux_cluster2_wide"),
 }
 
 PROBE_CC = "#include <barrier>\n#include <thread>\nint main() {}\n"
@@ -349,31 +334,24 @@ def test_conv_source_on_host_matches_plain(libs, label, n, P, lead):
     assert torch.equal(_run(libs["conv", label], *args), conv_plain(*args))
 
 
-@pytest.mark.parametrize("label", ["shipped", "threads64", "cluster2"])
+@pytest.mark.parametrize("label", ["shipped", "threads64", "cluster2",
+                                   "cluster2_wide"])
 @pytest.mark.parametrize("n,P,lead", [(256, 3, (2,)), (65536, 1, ())])
 def test_conv_aux_source_on_host_matches_plain(libs, label, n, P, lead):
     """K3 (aux-major): one CTA a row at n = 256, the cluster at n = 65536
-    (4 CTAs shipped; 64 threads a CTA, and 2-CTA clusters of 128
-    threads)."""
+    (4 CTAs shipped; 64 threads a CTA, and 2-CTA clusters of 128 and of
+    1024 threads)."""
     args = _args(n, P, lead, seed=n + P + 1, aux_major=True)
     assert torch.equal(_run(libs["conv_aux", label], *args),
                        conv_aux_plain(*args))
 
 
-def test_conv_aux_c2_entry_on_host_matches_plain(libs):
-    """helib_conv_aux_launch_c2: K3's 2-CTA clusters of 1024 threads, as
-    chip_smoke.py holds them on the card."""
-    args = _args(65536, 1, (), seed=65538, aux_major=True)
-    assert torch.equal(_run(libs["conv_aux", "c2_entry"], *args),
-                       conv_aux_plain(*args))
-
-
 @pytest.mark.parametrize("entry,n,rows", [("shipped", 256, 4),
-                                          ("c2_entry", 256, 3),
-                                          ("c2_entry", 65536, 4)])
+                                          ("shipped", 4, 3),
+                                          ("shipped", 131072, 3)])
 def test_conv_aux_entry_rejects_bad_shapes(libs, entry, n, rows):
-    """A row count that is not a multiple of 3, or a size the 2-CTA entry
-    does not run, is an invalid value (1) and launches nothing."""
+    """A row count that is not a multiple of 3, or a size outside
+    [2^3, 2^16], is an invalid value (1) and launches nothing."""
     null = [None] * 7
     assert libs["conv_aux", entry](None, None, rows, n.bit_length() - 1, 1,
                                    *null, None) == 1

@@ -1,5 +1,5 @@
-"""Import hygiene of the PyTorch port: helib_tpu_torch, chip_smoke.py and
-the scripts in tools/ import neither JAX nor anything of helib_tpu."""
+"""Import hygiene of the PyTorch port: helib_tpu_torch and the scripts in
+tools/ import neither JAX nor anything of helib_tpu."""
 
 import ast
 import os
@@ -23,8 +23,8 @@ def _port_modules():
 
 def _port_sources():
     tools = os.path.join(REPO, "tools")
-    out = [os.path.join(REPO, "chip_smoke.py")] + [
-        os.path.join(tools, f) for f in os.listdir(tools) if f.endswith(".py")]
+    out = [os.path.join(tools, f) for f in os.listdir(tools)
+           if f.endswith(".py")]
     for root, _, files in os.walk(PKG):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -68,7 +68,6 @@ def test_importing_every_module_loads_no_jax():
     assert len(mods) >= 71
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
-            "import chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'helib_tpu' or "
             "m.startswith('helib_tpu.'))\n"

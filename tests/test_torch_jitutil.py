@@ -91,41 +91,61 @@ def test_disable_jit_nests_and_restores():
     assert jitutil.jit_enabled()
 
 
-class _Kernel:
-    launches = 0
-
-
-def test_counter_replay_adds_the_capture_deltas():
-    a, b, c = _Kernel(), _Kernel(), _Kernel()
-    counters = [(a, "launches"), (b, "launches"), (c, "launches")]
-    jitutil.set_counts(counters, (5, 0, 2))     # the warm-up's real launches
-    before = jitutil.read_counts(counters)
-    a.launches += 8                              # what the capture recorded
-    c.launches += 1
-    delta = jitutil.count_delta(before, jitutil.read_counts(counters))
-    jitutil.set_counts(counters, before)         # the capture ran nothing
-    assert delta == (8, 0, 1)
-    assert jitutil.read_counts(counters) == (5, 0, 2)
+def test_counter_replay_adds_the_capture_deltas(monkeypatch):
+    from collections import Counter
+    from helib_tpu_torch.ops import _build
+    monkeypatch.setattr(_build, "launch_counts", Counter())
+    counts = _build.launch_counts
+    counts.update(conv=5, embed_max=2)           # the warm-up's real launches
+    with _build.counted_apart() as delta:        # what the capture recorded
+        for _ in range(8):
+            _build.count("conv")
+        _build.count("basis_ext")
+    assert delta == Counter(conv=8, basis_ext=1)
+    assert counts == Counter(conv=5, embed_max=2)   # the capture ran nothing
     for _ in range(3):                           # three replays
-        jitutil.add_counts(counters, delta)
-    assert jitutil.read_counts(counters) == (5 + 24, 0, 2 + 3)
+        counts.update(delta)
+    assert counts == Counter(conv=5 + 24, embed_max=2, basis_ext=3)
+    with pytest.raises(KeyError):                # a failed capture counts
+        with _build.counted_apart() as delta:    # nothing either
+            _build.count("conv")
+            raise KeyError("capture")
+    assert counts["conv"] == 29 and delta == Counter(conv=1)
 
 
-def test_launch_counters_are_the_ports_counts():
-    from helib_tpu_torch.ops import (basis_ext, conv, embed_max, ntt, ntt2,
-                                     ntt_fused, probes)
+def test_launch_counters_are_the_ports_counts(monkeypatch):
+    """One count for the whole port: the staged and the sharded transforms
+    add to ops._build.launch_counts, no kernel wrapper keeps a count of its
+    own, and jitutil reaches neither the parallel layer nor a kernel module
+    to count."""
+    import ast
+    from collections import Counter
+    from helib_tpu_torch.ops import (_build, basis_ext, conv, embed_max,
+                                     ntt, ntt2, ntt_fused, probes)
+    from helib_tpu_torch.nt.primegen import gen_primes
     from helib_tpu_torch.parallel import sharded_ntt
-    held = {(id(h), a) for h, a in jitutil.launch_counters()}
-    for h, a in [(conv.conv_cuda, "launches"), (conv.conv_aux_cuda,
-                 "launches"), (ntt_fused.ntt_cuda, "launches"),
-                 (ntt2.ntt2_cuda, "launches"), (ntt2.conv2_cuda, "launches"),
-                 (probes.p1_cuda, "launches"), (probes.p2_cuda, "launches"),
-                 (embed_max.embed_max_cuda, "launches"),
-                 (basis_ext.basis_ext_cuda, "launches"),
-                 (ntt, "staged_transforms"),
-                 (sharded_ntt, "sharded_transforms")]:
-        assert (id(h), a) in held
-    assert len(held) == 11
+    monkeypatch.setattr(_build, "launch_counts", Counter())
+    x = torch.zeros((1, 16), dtype=torch.int32)
+    qs = np.array(gen_primes(32, 1), dtype=np.uint32)
+    ntt.staged_pow2(x, ntt.Pow2NTT(qs, 16, negacyclic=True).tree("cpu"),
+                    False)
+    s = sharded_ntt.ShardedNTT(qs, 16, negacyclic=True, A=2, device="cpu")
+    s.inv(s.fwd(x))
+    assert _build.launch_counts == Counter(staged=1, sharded=2)
+    for fn in (conv.conv_cuda, conv.conv_aux_cuda, ntt_fused.ntt_cuda,
+               ntt2.ntt2_cuda, ntt2.conv2_cuda, probes.p1_cuda,
+               probes.p2_cuda, embed_max.embed_max_cuda,
+               basis_ext.basis_ext_cuda):
+        assert not hasattr(fn, "launches")
+    for mod in (ntt, sharded_ntt):
+        assert not {"staged_transforms", "sharded_transforms"} & set(vars(mod))
+    with open(jitutil.__file__) as f:
+        tree = ast.parse(f.read())
+    top = [n for n in tree.body if isinstance(n, ast.ImportFrom)]
+    assert all("parallel" not in (n.module or "") for n in ast.walk(tree)
+               if isinstance(n, ast.ImportFrom))
+    assert [a.name for n in top if n.module == "ops" for a in n.names] == [
+        "_build"]
 
 
 def test_dispatch_key_follows_a_swapped_kernel_and_v2(monkeypatch):

@@ -13,6 +13,7 @@ from helib_tpu.ops.pallas_ntt import apply_conv
 from helib_tpu.ops.modops import shoup
 
 from helib_tpu_torch.ops import ntt as tntt
+from helib_tpu_torch.ops._build import launch_counts
 from helib_tpu_torch.ops.conv import conv, conv_cuda, conv_plain
 from helib_tpu_torch.ops.modops import to_device, to_host
 
@@ -93,8 +94,8 @@ def test_conv_plain_matches_pallas_conv_interpret():
 def test_conv_kernel_wrapper_refuses_cpu_tensors():
     x, kh, khsh = _conv_case(64, 2, seed=1)
     aux = tntt.aux_tree(64, "cpu")["aux"]
-    before = conv_cuda.launches
+    before = launch_counts.copy()
     with pytest.raises(ValueError, match="CUDA tensor"):
         conv_cuda(to_device(x, "cpu"), aux, to_device(kh, "cpu"),
                   to_device(khsh, "cpu"))
-    assert conv_cuda.launches == before
+    assert launch_counts == before

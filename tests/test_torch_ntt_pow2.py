@@ -17,6 +17,7 @@ from helib_tpu.ops.pallas_ntt import apply_ntt
 
 from helib_tpu_torch.context import Context as TContext
 from helib_tpu_torch.ops import ntt as tntt
+from helib_tpu_torch.ops._build import launch_counts
 from helib_tpu_torch.ops.ntt_fused import ntt, ntt_cuda, ntt_plain
 from helib_tpu_torch.ops.modops import to_device, to_host
 
@@ -108,7 +109,7 @@ def test_ntt_kernel_wrapper_refuses_cpu_tensors_and_large_n():
     tab = tntt.Pow2NTT(qs, 64, negacyclic=True)
     flat = {k: to_device(v, "cpu") for k, v in tab.flat().items()}
     q = to_device(qs[:, None], "cpu")
-    before = ntt_cuda.launches
+    before = launch_counts.copy()
     with pytest.raises(ValueError, match="CUDA tensor"):
         ntt_cuda(to_device(x, "cpu"), flat, q, inverse=False)
     # n = 131072 (m = 262144) is above the kernel's 4-CTA clusters (and
@@ -118,4 +119,4 @@ def test_ntt_kernel_wrapper_refuses_cpu_tensors_and_large_n():
         ntt_cuda(big, flat, q, inverse=True)
     with pytest.raises(ValueError, match="power of two"):
         ntt_cuda(torch.zeros((1, 2, 48), dtype=torch.int32), flat, q, False)
-    assert ntt_cuda.launches == before
+    assert launch_counts == before

@@ -19,6 +19,7 @@ import torch
 from helib_tpu_torch.context import Context as TContext
 from helib_tpu_torch.keys import SecKey as TSecKey
 from helib_tpu_torch.nt.primegen import gen_primes, gen_aux_primes
+from helib_tpu_torch.ops._build import launch_counts
 from helib_tpu_torch.ops.modops import to_device, to_host
 from helib_tpu_torch.ops.ntt import (Pow2NTT, ntt_pow2_fwd, BluesteinTables,
                                      aux_tree, bluestein_apply)
@@ -46,7 +47,7 @@ def test_sharded_ntt_matches_helib_tpu_and_pow2ntt(n, negacyclic):
     x = _residues(qs, (2, n), seed=n + negacyclic)
     s = tsn.ShardedNTT(qs, n, negacyclic=negacyclic, A=8, device="cpu")
     js = JShardedNTT(qs, n, negacyclic=negacyclic, A=8)
-    before = tsn.sharded_transforms
+    before = launch_counts["sharded"]
     got = s.fwd(to_device(x, "cpu"))
     np.testing.assert_array_equal(to_host(got),
                                   np.asarray(jax.jit(js.fwd)(jnp.asarray(x))))
@@ -58,7 +59,7 @@ def test_sharded_ntt_matches_helib_tpu_and_pow2ntt(n, negacyclic):
     np.testing.assert_array_equal(
         to_host(back),
         np.asarray(jax.jit(js.inv)(jnp.asarray(to_host(got)))))
-    assert tsn.sharded_transforms == before + 2
+    assert launch_counts["sharded"] == before + 2
 
 
 @pytest.mark.parametrize("inverse", [False, True])
@@ -96,9 +97,9 @@ def test_enable_sharded_transforms_m45_matches_helib_tpu():
     fn, ex = make_mult_relin(ctx, TSecKey(ctx, seed=1))
     plain = fn(*ex)
     ctx.enable_sharded_transforms(4)
-    before = tsn.sharded_transforms
+    before = launch_counts["sharded"]
     sharded = fn(*ex)
-    moved = tsn.sharded_transforms - before
+    moved = launch_counts["sharded"] - before
     ctx.disable_sharded_transforms()
     assert moved > 0
     jctx = JContext(m=45, p=2, r=1, bits=150, c=3, scheme="bgv")

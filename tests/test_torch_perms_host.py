@@ -190,7 +190,7 @@ def test_perm_precomp_equals_reference(m):
 
 
 def test_m4095_network_of_default_rng_1():
-    """The network chip_smoke.py drives: depth 5, a default_rng(1)
+    """The network test_torch_cuda.py drives: depth 5, a default_rng(1)
     permutation of the 144 slots, 21 rotations through 13 distinct
     (dimension, amount) pairs."""
     pip = top.PermIndepPrecomp(_ea(TPAlgebra, 4095), 5)

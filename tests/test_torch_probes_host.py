@@ -9,7 +9,7 @@ of 1, 2 and 4 CTAs of 64 threads.  Every P1 variant and every P2 phase is
 held bit for bit to p1_plain / p2_plain (which tests/test_torch_probes.py
 holds to the TPU probes), alone and over a chain; what only the card can
 show (the compiler's output, timing) is left to test_torch_cuda.py and
-chip_smoke.py."""
+tools/kernel_times.py."""
 
 import ctypes
 

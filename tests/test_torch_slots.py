@@ -163,7 +163,7 @@ def test_factor_aligned_palgebra_equals_reference(m, mvec):
         j.coords(s) for s in range(0, j.nslots, 7)]
     assert all(t.slot_index(t.coords(s)) == s for s in range(t.nslots))
     np.testing.assert_array_equal(t.phim_poly(), j.phim_poly())
-    if m == 31775:   # chip_smoke.py's slot ring: a bad last dimension
+    if m == 31775:   # the thin-bootstrapping slot ring: a bad last dimension
         assert (t.orders, t.native) == ([30, 20, 2], [True, True, False])
 
 
